@@ -150,3 +150,8 @@ def resolve_task(phase: int, setting: str, method: str, dataset: str) -> TaskSpe
 
 # Mean BGR pixel values subtracted during preprocessing.
 RGB_MEANS = (104.0, 117.0, 123.0)
+
+# Training: probability of the zoom-out expand, and the IoU at which a
+# prior matches a ground-truth box.
+EXPAND_PROB = 0.6
+OVERLAP_THRESHOLD = 0.5

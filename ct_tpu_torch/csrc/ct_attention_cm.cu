@@ -1,13 +1,19 @@
 // Class-major Context-Transformer attention, forward, float32, for Hopper.
 //
-// Replaces the Pallas TPU kernel `_kernel_cm` (ct_tpu/ops/ct_attention.py,
-// reached through `ct_attention_cm`). For image b and anchor p:
+// Replaces two Pallas TPU kernels of ct_tpu/ops/ct_attention.py: `_kernel_cm`
+// (the eval forward, reached through `ct_attention_cm`) and
+// `_kernel_cm_stats` (the training forward, reached through
+// `ct_attention_cm_stats`). For image b and anchor p:
 //
 //   s[j]       = sum_c k[b,j,c] * q[b,c,p]
 //   out[b,c,p] = base[b,c,p] + wz[c] * sum_j e^(s[j]-max s) v[b,j,c]
 //                                     / sum_j e^(s[j]-max s)
 //
 // q, base, out are [B,C,P] (anchors contiguous); k, v are [B,K,C]; wz is [C].
+// The training forward also writes what the flash backward needs:
+// delta[b,c,p] (the attention output before wz), m[b,p] = max s and
+// z[b,p] = sum_j e^(s[j]-m), f32. The online softmax below ends holding
+// exactly its final max and denominator, so these cost three stores.
 //
 // What bounds it on the H100: arithmetic. Per (anchor, key) it does C FMAs
 // for the score, C FMAs for the weighted value sum and one exponential,
@@ -36,13 +42,14 @@ namespace {
 constexpr int kThreads = 128;  // anchors per block, one per thread
 constexpr int kKeyTile = 64;   // keys staged in shared memory at a time
 
-template <int CP>
+template <int CP, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 ct_attention_cm_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
                        const float* __restrict__ base,
                        const float* __restrict__ wz, float* __restrict__ out,
-                       int C, int P, int K) {
+                       float* __restrict__ delta, float* __restrict__ m_out,
+                       float* __restrict__ z_out, int C, int P, int K) {
   static_assert(CP % 4 == 0, "padded class count must be a multiple of 4");
   __shared__ __align__(16) float ks[kKeyTile * CP];
   __shared__ __align__(16) float vs[kKeyTile * CP];
@@ -117,20 +124,22 @@ ct_attention_cm_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int c = 0; c < CP; ++c) {
     if (c < C) {
       const size_t o = img + static_cast<size_t>(c) * P + p;
-      out[o] = base[o] + wz[c] * (acc[c] * inv);
+      const float d = acc[c] * inv;
+      out[o] = base[o] + wz[c] * d;
+      if (kStats) delta[o] = d;
     }
+  }
+  if (kStats) {
+    const size_t s_at = static_cast<size_t>(b) * P + p;
+    m_out[s_at] = m;
+    z_out[s_at] = l;
   }
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes. Pointers are device pointers of
-// contiguous float32 tensors; `stream` is a cudaStream_t. Returns the
-// launch status (cudaGetLastError), 0 on success.
-extern "C" int ct_attention_cm_f32(const void* q, const void* k,
-                                   const void* v, const void* base,
-                                   const void* wz, void* out, int B, int C,
-                                   int P, int K, void* stream) {
+template <bool kStats>
+int launch(const void* q, const void* k, const void* v, const void* base,
+           const void* wz, void* out, void* delta, void* m, void* z, int B,
+           int C, int P, int K, void* stream) {
   if (B <= 0 || C <= 0 || C > 64 || P <= 0 || K <= 0 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -142,12 +151,41 @@ extern "C" int ct_attention_cm_f32(const void* q, const void* k,
   const float* bf = static_cast<const float*>(base);
   const float* wf = static_cast<const float*>(wz);
   float* of = static_cast<float*>(out);
+  float* df = static_cast<float*>(delta);
+  float* mf = static_cast<float*>(m);
+  float* zf = static_cast<float*>(z);
   if (C <= 16) {
-    ct_attention_cm_kernel<16><<<grid, kThreads, 0, st>>>(qf, kf, vf, bf, wf,
-                                                          of, C, P, K);
+    ct_attention_cm_kernel<16, kStats><<<grid, kThreads, 0, st>>>(
+        qf, kf, vf, bf, wf, of, df, mf, zf, C, P, K);
   } else {
-    ct_attention_cm_kernel<64><<<grid, kThreads, 0, st>>>(qf, kf, vf, bf, wf,
-                                                          of, C, P, K);
+    ct_attention_cm_kernel<64, kStats><<<grid, kThreads, 0, st>>>(
+        qf, kf, vf, bf, wf, of, df, mf, zf, C, P, K);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes. Pointers are device pointers of
+// contiguous float32 tensors; `stream` is a cudaStream_t. Each returns the
+// launch status (cudaGetLastError), 0 on success.
+
+// Eval forward: out only.
+extern "C" int ct_attention_cm_f32(const void* q, const void* k,
+                                   const void* v, const void* base,
+                                   const void* wz, void* out, int B, int C,
+                                   int P, int K, void* stream) {
+  return launch<false>(q, k, v, base, wz, out, nullptr, nullptr, nullptr, B,
+                       C, P, K, stream);
+}
+
+// Training forward: out and delta [B,C,P], m and z [B,1,P].
+extern "C" int ct_attention_cm_stats_f32(const void* q, const void* k,
+                                         const void* v, const void* base,
+                                         const void* wz, void* out,
+                                         void* delta, void* m, void* z,
+                                         int B, int C, int P, int K,
+                                         void* stream) {
+  return launch<true>(q, k, v, base, wz, out, delta, m, z, B, C, P, K,
+                      stream);
 }

@@ -6,6 +6,12 @@ indexed like the reference's ``nn.ModuleList`` (ReLUs and pools hold their
 own indices), then ``Norm``, ``extras.{k}``, ``loc|conf|obj.{i}``,
 ``theta|phi|g|fc_base``, ``Wz``, ``OBJ_Target`` and ``scale``.
 
+In train mode (``net.train()``) BatchNorm uses batch statistics and
+updates its running statistics, and the ReLU and 2×2 max pool that close
+the conv1 stage run as one fused ``pool2x2_relu`` (kernel on the card), as
+the JAX package fuses them in training only; eval mode runs ``base``
+layer by layer.
+
 The forward returns raw logits for every head (softmax lives in
 ``eval_scores``); predictions are [B, P, 4] / [B, P, C] with anchors
 ordered row-major over (row, col, anchor) per source map, as in the JAX
@@ -24,6 +30,7 @@ from ct_tpu_torch import resolve_device
 from ct_tpu_torch.config import TaskSpec
 from ct_tpu_torch.models.layers import BasicConv, BasicRFB, BasicRFBa
 from ct_tpu_torch.ops.ct_attention import ct_attention_cm
+from ct_tpu_torch.ops.pool_relu import pool2x2_relu
 
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "C",
            512, 512, 512, "M", 512, 512, 512)
@@ -59,6 +66,23 @@ def vgg_plan(size: int = 300) -> List[Tuple[str, int, Any]]:
     idx += 2
     plan.append(("conv", idx, dict(out=fc_out, kernel=1, pad=0, dil=1)))  # fc7
     return plan
+
+
+def fused_pool_relu(size: int):
+    """``base`` index of the ReLU that the training forward fuses with the
+    2×2/s2 max pool right after it (the pool closing the conv1 stage), or
+    None: the first pool of the plan, when it is 2×2/s2 without ceil mode,
+    follows a conv, and no Norm source taps off between them."""
+    plan = vgg_plan(size)
+    norm_idx = norm_spec(size)[0]
+    for i, (kind, idx, spec) in enumerate(plan):
+        if kind != "pool":
+            continue
+        ok = (i > 0 and plan[i - 1][0] == "conv" and spec["kernel"] == 2
+              and spec["stride"] == 2 and not spec["ceil"]
+              and norm_idx not in (idx - 1, idx))
+        return idx - 1 if ok else None
+    return None
 
 
 def norm_spec(size: int) -> Tuple[int, int]:
@@ -160,6 +184,7 @@ class RFBNet(nn.Module):
                                            padding=spec.get("pad", 0),
                                            ceil_mode=spec["ceil"]))
         self.base = nn.ModuleList(layers)
+        self.fused_relu_idx = fused_pool_relu(size)
         self.norm_idx, norm_ch = norm_spec(size)
         self.Norm = BasicRFBa(norm_ch, norm_ch, stride=1, scale=1.0)
 
@@ -207,9 +232,15 @@ class RFBNet(nn.Module):
         b = x.shape[0]
 
         sources = []
+        fused = self.fused_relu_idx if self.training else None
         for i, layer in enumerate(self.base):
             if i == self.norm_idx:
                 sources.append(self.Norm(x))
+            if fused is not None and i == fused:
+                continue                      # runs inside the fused pool
+            if fused is not None and i == fused + 1:
+                x = pool2x2_relu(x)
+                continue
             x = layer(x)
         for k, layer in enumerate(self.extras):
             x = layer(x)
@@ -271,7 +302,7 @@ class RFBNet(nn.Module):
 
 def build_net(task: TaskSpec, size: int = 300, device="cuda") -> RFBNet:
     """The detector for ``task`` at ``size`` (300, 512, or the size-64
-    test model), in eval mode on ``device``."""
+    test model), in eval mode on ``device`` (``.train()`` for training)."""
     if size not in (64, 300, 512):
         raise ValueError("Only RFBNet300 and RFBNet512 are supported "
                          "(plus the size-64 test variant).")

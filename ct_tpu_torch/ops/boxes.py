@@ -24,20 +24,34 @@ def center_size(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def intersect(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
-    """Pairwise intersection area. [A, 4] × [B, 4] → [A, B]."""
-    max_xy = torch.minimum(box_a[:, None, 2:], box_b[None, :, 2:])
-    min_xy = torch.maximum(box_a[:, None, :2], box_b[None, :, :2])
+    """Pairwise intersection area. [..., A, 4] × [..., B, 4] → [..., A, B]
+    (leading dims broadcast)."""
+    max_xy = torch.minimum(box_a[..., :, None, 2:], box_b[..., None, :, 2:])
+    min_xy = torch.maximum(box_a[..., :, None, :2], box_b[..., None, :, :2])
     inter = (max_xy - min_xy).clamp(min=0)
     return inter[..., 0] * inter[..., 1]
 
 
 def iou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU (jaccard overlap) of point-form boxes. → [A, B]."""
+    """Pairwise IoU (jaccard overlap) of point-form boxes.
+    [..., A, 4] × [..., B, 4] → [..., A, B]."""
     inter = intersect(box_a, box_b)
-    area_a = (box_a[:, 2] - box_a[:, 0]) * (box_a[:, 3] - box_a[:, 1])
-    area_b = (box_b[:, 2] - box_b[:, 0]) * (box_b[:, 3] - box_b[:, 1])
-    union = area_a[:, None] + area_b[None, :] - inter
+    area_a = (box_a[..., 2] - box_a[..., 0]) * (box_a[..., 3] - box_a[..., 1])
+    area_b = (box_b[..., 2] - box_b[..., 0]) * (box_b[..., 3] - box_b[..., 1])
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / union
+
+
+def matrix_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU variant of the augmentation pipeline: the intersection is zeroed
+    (not clamped per axis) unless the boxes overlap on every axis.
+    [A, 4] × [B, 4] → [A, B]."""
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    area_i = torch.prod(rb - lt, dim=2) * (lt < rb).all(dim=2)
+    area_a = torch.prod(a[:, 2:] - a[:, :2], dim=1)
+    area_b = torch.prod(b[:, 2:] - b[:, :2], dim=1)
+    return area_i / (area_a[:, None] + area_b[None, :] - area_i)
 
 
 def encode(

@@ -67,6 +67,24 @@ def test_box_ops_match_jax():
                                    rtol=2.4e-7, atol=1e-7)
 
 
+def test_matrix_iou_and_batched_iou_match_jax():
+    rng = np.random.default_rng(4)
+    a, b = _boxes(rng, 19), _boxes(rng, 11)
+    b[:3] = a[:3]                               # identical boxes
+    b[3] = [2.0, 2.0, 2.5, 2.5]                 # disjoint from all of a
+    ours = tboxes.matrix_iou(torch.from_numpy(a), torch.from_numpy(b))
+    ref = jboxes.matrix_iou(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    assert (ours[:, 3] == 0).all() and (ours[[0, 1, 2], [0, 1, 2]] == 1).all()
+    # leading batch dims broadcast: [2, 19, 4] × [11, 4] → [2, 19, 11]
+    a2 = np.stack([a, _boxes(rng, 19)])
+    batched = tboxes.iou(torch.from_numpy(a2), torch.from_numpy(b))
+    for i in range(2):
+        np.testing.assert_array_equal(
+            batched[i].numpy(),
+            np.asarray(jboxes.iou(jnp.asarray(a2[i]), jnp.asarray(b))))
+
+
 def test_decode_inverts_encode():
     rng = np.random.default_rng(1)
     priors = torch.from_numpy(prior_boxes_np(tcfg.VOC_300)[:50])

@@ -1,0 +1,303 @@
+"""The port's training data, checkpoints and CLI vs the JAX package's.
+
+* ``TrainAugment`` from the same Python ``random`` seed: identical images
+  and targets (both draw the same numbers in the same order).
+* ``VOCDetection`` (training side) on the mini VOC of tests/fixtures.py:
+  the same ids, targets, ignore labels and, from the same numpy seed, the
+  same mixed images and mixup weights (ignored rows weigh 0 in ``incre``).
+* ``Loader`` with thread workers: the same padded batches as the JAX
+  package's ``Loader`` for one seed, before and after a restart.
+* The checkpointer: round trip, the ``last_checkpoint`` tag, resume with
+  the optimizer state, the phase-2 fresh start (weights only), a skip with
+  a log line per key whose shape differs, the VGG basenet's prefix.
+* The CLI at 300 on the CPU, three steps of batch 2: phase 2 incre
+  ``ours`` (shot 1, mixup, two OBJ_Target init batches) and phase 2
+  transfer ``ours`` from ``.parity_p2/ref_model.pth``, and phase 1 from
+  scratch: finite losses, checkpoints, a ``metrics.json`` line per step,
+  and the port's eval CLI scores ``model_final.pth``. Flags of what is not
+  ported raise.
+"""
+
+import json
+import logging
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from ct_tpu.config import RGB_MEANS as J_RGB_MEANS
+from ct_tpu.data.augment import TrainAugment as JTrainAugment
+from ct_tpu.data.loader import Loader as JLoader
+from ct_tpu.data.voc import AnnotationTransform as JAnnotationTransform
+from ct_tpu.data.voc import VOCDetection as JVOCDetection
+from ct_tpu_torch.config import RGB_MEANS, resolve_task
+from ct_tpu_torch.data.augment import TrainAugment
+from ct_tpu_torch.data.loader import Loader
+from ct_tpu_torch.data.voc import AnnotationTransform, VOCDetection
+from ct_tpu_torch.models.rfbnet import build_net
+from ct_tpu_torch.train import cli
+from ct_tpu_torch.train.checkpointer import Checkpointer, PeriodicCheckpointer
+from ct_tpu_torch.train.solver import SolverConfig, build_optimizer
+from fixtures import make_mini_voc, make_mini_voc_all
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF_MODEL = os.path.join(REPO, ".parity_p2", "ref_model.pth")
+
+
+@pytest.fixture(scope="module")
+def devkit(tmp_path_factory):
+    return make_mini_voc(str(tmp_path_factory.mktemp("voc")))
+
+
+@pytest.fixture(scope="module")
+def devkit_0712(tmp_path_factory):
+    return make_mini_voc_all(str(tmp_path_factory.mktemp("voc0712")))
+
+
+def test_train_augment_matches_jax():
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 255, (240, 320, 3)).astype(np.uint8)
+    targets = np.asarray([[20.0, 30.0, 120.0, 140.0, 3.0],
+                          [150.0, 60.0, 300.0, 200.0, 7.0]])
+    ours, ref = TrainAugment(300, RGB_MEANS), JTrainAugment(300, J_RGB_MEANS)
+    for seed in range(12):
+        random.seed(seed)
+        a_img, a_t = ours(img.copy(), targets.copy())
+        random.seed(seed)
+        b_img, b_t = ref(img.copy(), targets.copy())
+        np.testing.assert_array_equal(a_img, b_img)
+        np.testing.assert_array_equal(a_t, b_t)
+
+
+@pytest.mark.parametrize("phase,setting,instance_shot", [
+    (2, "incre", False), (2, "transfer", False), (2, "transfer", True),
+    (1, "transfer", False)])
+def test_voc_train_set_matches_jax(devkit, phase, setting, instance_shot):
+    kw = dict(phase=phase, setting=setting, split=1, shot=1,
+              instance_shot=instance_shot)
+    split = 0 if setting == "transfer" else 1
+    sets = [("2007", "trainval")]
+    ours = VOCDetection(devkit, sets, TrainAugment(300, RGB_MEANS),
+                        AnnotationTransform(split), **kw)
+    ref = JVOCDetection(devkit, sets, JTrainAugment(300, J_RGB_MEANS),
+                        JAnnotationTransform(split), **kw)
+    assert ours.ids == ref.ids and len(ours) > 1
+    for mixup in (False, True):
+        for ds in (ours, ref):
+            ds.set_mixup(np.random.beta if mixup else None, 1.5, 1.5)
+        for i in range(min(3, len(ours))):
+            samples = []
+            for ds in (ours, ref):
+                random.seed(i)
+                np.random.seed(i)
+                samples.append(ds[i])
+            (a_img, a_t), (b_img, b_t) = samples
+            np.testing.assert_array_equal(a_img, b_img)
+            np.testing.assert_array_equal(a_t, b_t)
+            if phase == 2 and (setting == "incre" or instance_shot):
+                assert (a_t[1:, 4] == -1).all() or mixup
+            if mixup and setting == "incre":
+                assert (a_t[a_t[:, 4] == -1, 5] == 0).all()
+
+
+class _Fixed:
+    """Seven fixed-size samples with ragged targets."""
+
+    def __len__(self):
+        return 7
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(i)
+        n = 1 + i % 3
+        t = np.hstack([rng.uniform(0, 0.5, (n, 2)),
+                       rng.uniform(0.5, 1, (n, 2)),
+                       rng.randint(1, 20, (n, 1)), np.ones((n, 1))])
+        return rng.standard_normal((8, 8, 3)).astype(np.float32), t
+
+
+def test_loader_batches_match_jax():
+    ours = Loader(_Fixed(), 3, num_workers=2, max_objs=5, seed=4)
+    ref = JLoader(_Fixed(), 3, num_workers=3, max_objs=5, seed=4)
+    try:
+        for restart in (False, True):
+            if restart:
+                ours.restart()
+                ref.restart()
+            for _ in range(4):
+                a, b = ours.next(), ref.next()
+                assert set(a) == set(b)
+                for key in a:
+                    np.testing.assert_array_equal(a[key], b[key],
+                                                  err_msg=key)
+    finally:
+        ours.stop()
+        ref.stop()
+
+
+def test_loader_raises_a_worker_error():
+    class Broken(_Fixed):
+        def __getitem__(self, i):
+            raise OSError("unreadable sample")
+
+    loader = Loader(Broken(), 2, num_workers=1)
+    try:
+        with pytest.raises(RuntimeError, match="worker failed"):
+            loader.next()
+    finally:
+        loader.stop()
+
+
+def _model_and_opt(setting="incre", seed=0):
+    torch.manual_seed(seed)
+    task = resolve_task(2, setting, "ours", "VOC")
+    net = build_net(task, 64, device="cpu").train()
+    opt, sched = build_optimizer(net, task, SolverConfig(warmup_iters=2))
+    return net, opt, sched
+
+
+def _take_step(net, opt, sched):
+    out = net(torch.ones(2, 3, 64, 64))
+    (out.loc.sum() + out.conf.square().mean()).backward()
+    opt.step()
+    sched.step()
+    opt.zero_grad()
+
+
+def test_checkpointer_round_trip_tag_and_resume(tmp_path):
+    net, opt, sched = _model_and_opt()
+    ck = Checkpointer(str(tmp_path))
+    periodic = PeriodicCheckpointer(ck, period=2, max_iter=4)
+    for it in range(4):
+        _take_step(net, opt, sched)
+        periodic.step(it, model=net, optimizer=opt, scheduler=sched)
+    assert sorted(os.listdir(tmp_path)) == [
+        "last_checkpoint", "model_0000001.pth", "model_0000003.pth",
+        "model_final.pth"]
+    assert ck.get_checkpoint_file() == str(tmp_path / "model_final.pth")
+
+    # resume: weights, optimizer state and iteration
+    net2, opt2, sched2 = _model_and_opt(seed=1)
+    assert Checkpointer(str(tmp_path)).resume_or_load(
+        None, net2, opt2, sched2, resume=True) == 3
+    for key, val in net.state_dict().items():
+        assert torch.equal(val, net2.state_dict()[key]), key
+    bufs = [opt.state[p].get("momentum_buffer") for p in net.parameters()]
+    bufs2 = [opt2.state[p].get("momentum_buffer") for p in net2.parameters()]
+    assert sum(b is not None for b in bufs) > 10
+    assert all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(bufs, bufs2))
+    assert sched2.last_epoch == sched.last_epoch == 4
+    _take_step(net, opt, sched)
+    _take_step(net2, opt2, sched2)
+    for key, val in net.state_dict().items():
+        assert torch.equal(val, net2.state_dict()[key]), key
+
+    # the phase-2 fresh start: weights only, iteration restarts
+    net3, opt3, sched3 = _model_and_opt(seed=2)
+    assert Checkpointer(str(tmp_path)).resume_or_load(
+        None, net3, opt3, sched3, resume=True, load_optimizer=False) == -1
+    assert not opt3.state
+    for key, val in torch.load(tmp_path / "model_0000003.pth",
+                               weights_only=True)["model"].items():
+        assert torch.equal(val, net3.state_dict()[key]), key
+
+
+def test_checkpointer_skips_mismatched_shapes_and_prefixes_basenet(
+        tmp_path, caplog):
+    src, _, _ = _model_and_opt("transfer")            # 60 source classes
+    path = Checkpointer(str(tmp_path)).save("model_final", src)
+    dst, _, _ = _model_and_opt("incre", seed=3)       # 15 source classes
+    before = {k: v.clone() for k, v in dst.state_dict().items()}
+    with caplog.at_level(logging.WARNING):
+        assert Checkpointer(str(tmp_path / "x")).resume_or_load(
+            path, dst) == -1
+    skipped = [k for k, v in src.state_dict().items()
+               if k in before and v.shape != before[k].shape]
+    assert skipped and all(f"Skip loading {k}:" in caplog.text
+                           for k in skipped)
+    for key, val in dst.state_dict().items():
+        want = before[key] if key in skipped or key not in src.state_dict() \
+            else src.state_dict()[key]
+        assert torch.equal(val, want), key
+
+    # the VGG basenet: a bare trunk state_dict
+    trunk = {k[len("base."):]: v for k, v in src.state_dict().items()
+             if k.startswith("base.")}
+    torch.save(trunk, tmp_path / "vgg.pth")
+    Checkpointer(str(tmp_path / "y")).resume_or_load(
+        str(tmp_path / "vgg.pth"), dst)
+    assert torch.equal(dst.base[0].weight, src.base[0].weight)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--bf16"], ["--device-augment"], ["--canvas", "384"], ["--orbax"],
+    ["--pallas-ct", "on"], ["--profile-dir", "p"], ["--fused-opt", "on"],
+    ["--accum-steps", "2"], ["--ndev", "2"], ["--worker-type", "process"],
+    ["-d", "COCO"]])
+def test_cli_refuses_what_is_not_ported(flag, tmp_path):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        cli.main(flag + ["--save-folder", str(tmp_path), "--device", "cpu"])
+
+
+# (train flags, eval flags, APs scored): phase 2 incre from the trained
+# phase-2 model; phase 2 transfer from it too (its 15-class conf heads are
+# skipped for the 60-class model); phase 1 from scratch (no basenet here)
+CLI_CASES = {
+    "incre": (["-p", "2", "--setting", "incre", "--split", "1", "--shot",
+               "1", "--mixup", "--init-iter", "2", "--load-file", REF_MODEL],
+              ["-p", "2", "--setting", "incre", "--split", "1"], 20),
+    "transfer": (["-p", "2", "--setting", "transfer", "--shot", "5",
+                  "--init-iter", "1", "--load-file", REF_MODEL],
+                 ["-p", "2", "--setting", "transfer"], 20),
+    "phase1": (["-p", "1", "--setting", "transfer", "--basenet",
+                "no_such_basenet.pth"], ["-p", "1", "--setting",
+                                         "transfer"], 15),
+}
+
+
+@pytest.fixture
+def two_threads():
+    """The full-width CPU runs below take two intra-op threads: the suite
+    runs several test processes side by side, and more threads per process
+    than that oversubscribe the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_cli_trains_three_steps_and_the_eval_cli_scores_them(
+        case, devkit, devkit_0712, tmp_path, monkeypatch, two_threads):
+    from ct_tpu_torch import test as test_cli
+
+    train_flags, eval_flags, n_aps = CLI_CASES[case]
+    assert cli.parse_args([]).device == "cuda"
+    monkeypatch.setenv("VOC_ROOT", devkit if case == "incre"
+                       else devkit_0712)
+    save = str(tmp_path / "w")
+    row = cli.main(["-d", "VOC", "--max-iter", "3", "-b", "2",
+                    "--num-workers", "2", "--checkpoint-period", "2",
+                    "--save-folder", save, "--device", "cpu"] + train_flags)
+    assert row["iteration"] == 2
+    assert set(os.listdir(save)) >= {"last_checkpoint", "model_0000001.pth",
+                                     "model_final.pth", "metrics.json",
+                                     "log.txt"}
+    with open(os.path.join(save, "metrics.json")) as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["iteration"] for r in rows] == [0, 1, 2]
+    for r in rows:
+        assert set(r) == {"iteration", "loss_box_reg", "loss_cls",
+                          "loss_obj", "total_loss", "lr", "time"}
+        assert all(np.isfinite(v) for v in r.values())
+    with open(os.path.join(save, "log.txt")) as f:
+        assert f.read().count("total_loss") == 3
+
+    res = test_cli.main(eval_flags + [
+        "--load-file", os.path.join(save, "model_final.pth"),
+        "--save-folder", save, "-b", "4", "--device", "cpu"])
+    assert len(res["APs"]) == n_aps and np.isfinite(res["mAP"])
+    if case == "incre":
+        assert set(res) == {"mAP", "APs", "base_mAP", "novel_mAP"}
