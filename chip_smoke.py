@@ -20,11 +20,25 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            plain, bound and the one PyTorch call that computes the same
            function (``scaled_dot_product_attention`` forward or backward,
            ``relu(max_pool2d)`` and its autograd backward).
+           ``ct_attention_serving`` (the fused serving CT head) at B=8 with
+           C=15/N=5 and C=60/N=20 and at ragged P and K, timed at B=8 beside
+           the unfused head in library calls; ``nms_mask`` (the NMS kernel)
+           with keep masks equal to the plain fixpoint loop's on seeded
+           and tie-heavy boxes at N=160 rows of K=200, timed beside the
+           loop (whose sweeps it counts).
 4. model   the phase-2 incre split-1 RFBNet300 with ``ref_model.pth`` on
            the card: 1 warm-up and 3 timed eval steps on 8 seeded images
            (images/s from the median step), the kernels' launch counts
            over those steps, one profiled step, and the same model on the
            CPU on one image, whose detections must match.
+   serving the same model on the int8 serving path (``test.py --int8``):
+           BN folded, calibrated on 8 seeded images, quantized with
+           ``SKIP_DEFAULT`` and int8 chained across the trunk's pools; 1
+           warm-up and 3 timed eval steps at batch 8 (images/s, peak
+           memory), the launch counts of the serving head and NMS kernels,
+           one profiled step, the same quantized model (same scales) on
+           the CPU on one image, whose detections must match, and the
+           calibration on the card against the CPU's from two images.
 5. train   the same model in train mode on the card: ``init_reweight``
            over 2 batches, then 1 warm-up and 3 timed steps of
            ``make_train_step`` at batch 64 with the CLI's solver defaults
@@ -33,7 +47,7 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            training kernels over those steps, one profiled step, and one
            loss-and-gradients call at batch 2 on the card and on the CPU
            from the same state, whose losses and gradients must agree.
-6. kernels one line listing every kernel of the two paths with its
+6. kernels one line listing every kernel of the three paths with its
            launches on its path's phase, error and times.
 
 Any failure raises and exits non-zero with no "ok" line. The last line is
@@ -61,11 +75,19 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 KERNEL_TOL = 1e-4      # max |kernel - plain|, f32, K up to 1858 terms
+# the serving head: max |kernel - plain| over the largest score (the same
+# f32 formula, its sums over K and C in another order)
+SERVING_TOL = 1e-4
 # flash backward: max |kernel - plain| over max |plain|, per output; each
 # entry sums up to 11,620 anchors (dk, dv) or 1,858 keys (dq)
 BWD_TOL = 1e-4
 MATCH_IOU = 0.999      # card vs CPU detections, per box
 MATCH_SCORE = 1e-4
+# card vs CPU calibration: each conv's input absmax, relative, after a
+# float forward through up to ~30 convs summed in another order
+CALIB_TOL = 1e-4
+# the int8 scales a quantized conv holds as buffers
+QUANT_BUFFERS = ("act_scale", "kernel_int8", "kernel_scale", "out_scale")
 # card vs CPU, one train loss-and-gradients call at batch 2: the losses to
 # rtol 1e-4; each gradient tensor, over the anchors the CPU mined, taken as
 # the vector the optimizer applies, to ‖Δ‖₂ ≤ 1e-2 · ‖CPU gradient‖₂. At
@@ -186,6 +208,116 @@ def attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
                 q_rm, k4, v4, scale=1.0), 20),
             library_max_abs_err=(lib_out - ref).abs().max().item(),
         )
+    return res
+
+
+def serving_case(rng, b, c, p, kk, n, time_it: bool) -> dict:
+    """``ct_attention_serving`` against its plain version: max |Δ| over the
+    largest score."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_serving, ct_attention_serving_reference,
+    )
+
+    dev = torch.device("cuda")
+    t = lambda *shape, scale=1.0: torch.from_numpy(
+        rng.standard_normal(shape, np.float32) * scale).to(dev)
+    conf, k, v = t(b, c, p, scale=3.0), t(b, kk, c, scale=0.3), t(b, kk, c)
+    wt, bt, wz = t(c, c, scale=0.2), t(c, scale=0.1), t(c, scale=0.3)
+    obj = t(n, c)
+    args = (conf, k, v, wt, bt, wz, obj)
+    with torch.inference_mode():
+        out = ct_attention_serving(*args)
+        ref = ct_attention_serving_reference(*args)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        res = {"B": b, "C": c, "P": p, "K": kk, "N": n, "max_abs_err": err,
+               "rel_err": err / ref.abs().max().item(),
+               "tol": SERVING_TOL}
+        if not res["rel_err"] <= SERVING_TOL:
+            raise AssertionError(f"ct_attention_serving disagrees with its "
+                                 f"plain version: {res}")
+        if not time_it:
+            return res
+        del ref
+
+        def library():
+            # the unfused head in library calls on the row-major layout:
+            # θ by matmul, the attention by scaled_dot_product_attention
+            # (unscaled scores), normalisation, the classifier by matmul
+            x = conf.transpose(1, 2)                       # [B, P, C]
+            q = torch.matmul(x, wt) + bt + x
+            a = F.scaled_dot_product_attention(q[:, None], k[:, None],
+                                               v[:, None], scale=1.0)[:, 0]
+            nv = x + a * wz
+            nv = nv * torch.rsqrt((nv * nv).sum(-1, keepdim=True))
+            return torch.matmul(nv, obj.t()) * 5.0
+
+        res.update(
+            ms=cuda_ms(lambda: ct_attention_serving(*args), 20),
+            plain_ms=cuda_ms(lambda: ct_attention_serving_reference(*args),
+                             5),
+            library_ms=cuda_ms(library, 20),
+            library_max_abs_err=(library().transpose(1, 2) - out)
+            .abs().max().item(),
+            **bound(2 * b * p * c * (2 * kk + c + n),
+                    4 * (b * c * p + b * n * p + 2 * b * kk * c + c * c
+                         + 3 * c + n * c)))
+    return res
+
+
+def nms_boxes(rng, n, k, ties: bool):
+    """n rows of k score-sorted candidate boxes in pixels, as NMS sees them:
+    jittered copies of a few objects per row (long suppression chains),
+    with integer corners (tied IoUs) if ``ties``; 90% valid."""
+    import numpy as np
+    import torch
+
+    objs = rng.uniform(0, 400, (n, 6, 2))
+    size = rng.uniform(30, 200, (n, 6, 2))
+    pick = rng.integers(0, 6, (n, k))
+    rows = np.arange(n)[:, None]
+    lo = objs[rows, pick] + rng.normal(0, 8, (n, k, 2))
+    hi = lo + size[rows, pick] * rng.uniform(0.8, 1.2, (n, k, 2))
+    boxes = np.concatenate([lo, hi], -1)
+    if ties:
+        boxes = np.round(boxes)
+    valid = rng.uniform(size=(n, k)) < 0.9
+    return (torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            torch.from_numpy(valid).cuda())
+
+
+def nms_case(rng, n, k, ties: bool, time_it: bool) -> dict:
+    """``nms_mask``'s keep mask against the plain fixpoint loop's, bit for
+    bit, on the card and on the CPU."""
+    import torch
+
+    from ct_tpu_torch.ops.nms import nms_mask, nms_mask_reference
+
+    boxes, valid = nms_boxes(rng, n, k, ties)
+    keep = nms_mask(boxes, valid, 0.45, 1.0)
+    plain = nms_mask_reference(boxes, valid, 0.45, 1.0)
+    torch.cuda.synchronize()
+    res = {"N": n, "K": k, "ties": ties,
+           "equal": bool(torch.equal(keep, plain)),
+           "equal_cpu": bool(torch.equal(keep.cpu(), nms_mask_reference(
+               boxes.cpu(), valid.cpu(), 0.45, 1.0))),
+           "kept": int(keep.sum().item()), "valid": int(valid.sum().item()),
+           "sweeps": nms_mask_reference.sweeps,
+           "max_abs_err": float((keep != plain).sum().item())}
+    if not (res["equal"] and res["equal_cpu"]):
+        raise AssertionError(f"nms_mask differs from the plain loop: {res}")
+    if time_it:
+        # K(K-1)/2 IoUs per row of ~20 flops; boxes and valid read once,
+        # keep written once
+        res.update(ms=cuda_ms(lambda: nms_mask(boxes, valid, 0.45, 1.0), 50),
+                   plain_ms=cuda_ms(lambda: nms_mask_reference(
+                       boxes, valid, 0.45, 1.0), 10),
+                   library_ms=None,
+                   **bound(20 * n * k * (k - 1) / 2, n * k * (16 + 1 + 1)))
     return res
 
 
@@ -360,6 +492,16 @@ def phase_kernel(seed: int) -> dict:
                                                        False),
         "train_timed": training_attention_case(rng, TRAIN_BATCH, 15, 11620,
                                                1858, True),
+        # the serving head at the serving path's shapes (B=8; incre C=15 and
+        # N=5, transfer C=60 and N=20), ragged P and K
+        "serving_incre": serving_case(rng, 8, 15, 11620, 1858, 5, True),
+        "serving_transfer": serving_case(rng, 8, 60, 11620, 1858, 20, True),
+        "serving_ragged": serving_case(rng, 3, 60, 1001, 97, 20, False),
+        "serving_ragged_narrow": serving_case(rng, 2, 7, 130, 65, 3, False),
+        # NMS at the eval path's rows: 8 images x 20 classes of 200
+        "nms": nms_case(rng, 160, 200, False, True),
+        "nms_ties": nms_case(rng, 160, 200, True, False),
+        "nms_ragged": nms_case(rng, 7, 33, True, False),
         # conv1's pool at 300: [B, 64, 300, 300] → [B, 64, 150, 150]
         "pool": pool_case(rng, (8, 64, 300, 300), False),
         "pool_ragged": pool_case(rng, (3, 5, 6, 10), False),
@@ -387,14 +529,64 @@ def seeded_images(seed: int, n: int, size: int):
     return img - torch.tensor(RGB_MEANS)[None, :, None, None]
 
 
+def eval_steps(step, x, hw, counts: dict, expected: dict, steps: int,
+               out_dir: str, table: str) -> dict:
+    """1 warm-up and ``steps`` timed calls of an eval step on the card
+    (images/s from the median step, peak memory since the caller's reset),
+    the launches of the ``counts`` kernels over them, which must equal
+    ``expected``, and one profiled step."""
+    import torch
+
+    for fn in counts.values():
+        fn.launches = 0
+    times = []
+    for _ in range(1 + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = step(x, hw)
+        dets = type(dets)(*(t.cpu() for t in dets))
+        times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counts.items()}
+    if launches != expected:
+        raise AssertionError(f"launches over {1 + steps} eval steps: "
+                             f"{launches}, expected {expected}")
+    median_s = sorted(times[1:])[steps // 2]
+    res = {"batch": x.shape[0], "warmup_s": times[0], "step_s": times[1:],
+           "images_per_s": x.shape[0] / median_s, "launches": launches,
+           "detections_per_image": dets.valid.sum(1).tolist(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res["profile"] = profile_step(lambda: step(x, hw), out_dir, table)
+    return res
+
+
+def card_vs_cpu_detections(step, cpu_net, images, sizes) -> dict:
+    """The card's eval step and ``cpu_net``'s on the first image: the
+    detections must match (``compare_detections`` at MATCH_IOU and
+    MATCH_SCORE)."""
+    from ct_tpu_torch.config import VOC_300
+    from ct_tpu_torch.eval import compare_detections, make_eval_step
+    from ct_tpu_torch.ops.priors import prior_boxes
+
+    cpu_step = make_eval_step(cpu_net, prior_boxes(VOC_300, "cpu"))
+    cpu_dets = cpu_step(images[:1], sizes[:1])
+    gpu_dets = step(images[:1].cuda(), sizes[:1].cuda())
+    agree = compare_detections(type(gpu_dets)(*(t.cpu() for t in gpu_dets)),
+                               cpu_dets, iou_tol=MATCH_IOU,
+                               score_tol=MATCH_SCORE)
+    if not agree["ok"]:
+        raise AssertionError(f"card and CPU detections differ: {agree}")
+    return agree
+
+
 def phase_model(seed: int, out_dir: str) -> dict:
     import torch
 
     from ct_tpu_torch.config import VOC_300, resolve_task
-    from ct_tpu_torch.eval import compare_detections, make_eval_step
+    from ct_tpu_torch.eval import make_eval_step
     from ct_tpu_torch.models.convert import load_reference_pth
     from ct_tpu_torch.models.rfbnet import build_net
     from ct_tpu_torch.ops.ct_attention import ct_attention_cm
+    from ct_tpu_torch.ops.nms import nms_mask
     from ct_tpu_torch.ops.priors import prior_boxes
 
     batch, steps = 8, 3
@@ -407,42 +599,84 @@ def phase_model(seed: int, out_dir: str) -> dict:
     net = build_net(task, 300, device="cuda")
     net.load_state_dict(state)
     step = make_eval_step(net, prior_boxes(VOC_300, "cuda"))
-    x, hw = images.cuda(), sizes.cuda()
-
-    counts = {"ct_attention_cm": ct_attention_cm}
-    for fn in counts.values():
-        fn.launches = 0
-    times = []
-    for i in range(1 + steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dets = step(x, hw)
-        dets = type(dets)(*(t.cpu() for t in dets))
-        times.append(time.perf_counter() - t0)
-    launches = {name: fn.launches for name, fn in counts.items()}
-    for name, n in launches.items():
-        if n != 1 + steps:
-            raise AssertionError(f"{name} launched {n} times in "
-                                 f"{1 + steps} eval steps")
-    median_s = sorted(times[1:])[steps // 2]
-    res = {"batch": batch, "warmup_s": times[0], "step_s": times[1:],
-           "images_per_s": batch / median_s, "launches": launches,
-           "detections_per_image": dets.valid.sum(1).tolist(),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    res["profile"] = profile_step(lambda: step(x, hw), out_dir,
-                                  "profile_model.txt")
-
+    counts = {"ct_attention_cm": ct_attention_cm, "nms_mask": nms_mask}
+    res = eval_steps(step, images.cuda(), sizes.cuda(), counts,
+                     dict.fromkeys(counts, 1 + steps), steps, out_dir,
+                     "profile_model.txt")
     cpu_net = build_net(task, 300, device="cpu")
     cpu_net.load_state_dict(state)
-    cpu_step = make_eval_step(cpu_net, prior_boxes(VOC_300, "cpu"))
-    cpu_dets = cpu_step(images[:1], sizes[:1])
-    gpu_dets = step(x[:1], hw[:1])
-    agree = compare_detections(type(gpu_dets)(*(t.cpu() for t in gpu_dets)),
-                               cpu_dets, iou_tol=MATCH_IOU,
-                               score_tol=MATCH_SCORE)
-    res["card_vs_cpu"] = agree
-    if not agree["ok"]:
-        raise AssertionError(f"card and CPU detections differ: {agree}")
+    res["card_vs_cpu"] = card_vs_cpu_detections(step, cpu_net, images, sizes)
+    return res
+
+
+def phase_serving(seed: int, out_dir: str) -> dict:
+    """The int8 serving path of ``test.py --int8`` on the card, then the
+    same quantized model (the same scales) on the CPU on one image, and
+    the calibration of the card against the CPU's on the same images."""
+    import torch
+
+    from ct_tpu_torch.config import VOC_300, resolve_task
+    from ct_tpu_torch.eval import make_eval_step
+    from ct_tpu_torch.models.convert import load_reference_pth
+    from ct_tpu_torch.models.fold_bn import fold_bn
+    from ct_tpu_torch.models.quantize import attach, calibrate
+    from ct_tpu_torch.models.rfbnet import build_net
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_cm, ct_attention_serving,
+    )
+    from ct_tpu_torch.ops.nms import nms_mask
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.test import serving_model
+
+    batch, steps = 8, 3
+    task = resolve_task(2, "incre", "ours", "VOC")
+    state = load_reference_pth(REF_MODEL)
+    images = seeded_images(seed + 100, batch, 300)
+    sizes = torch.tensor([[375, 500]] * batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    net = build_net(task, 300, device="cuda")
+    net.load_state_dict(state)
+    t0 = time.perf_counter()
+    served, quant = serving_model(net, seeded_images(seed + 200, 8, 300))
+    torch.cuda.synchronize()
+    # preparing includes a float forward at batch 8 (the calibration):
+    # its peak memory is kept apart from the serving steps'
+    prep = {"quantized_convs": len(quant),
+            "chained": sum("out_scale" in q for q in quant.values()),
+            "prepare_s": time.perf_counter() - t0,
+            "prepare_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    step = make_eval_step(served, prior_boxes(VOC_300, "cuda"))
+    counts = {"ct_attention_serving": ct_attention_serving,
+              "nms_mask": nms_mask, "ct_attention_cm": ct_attention_cm}
+    expected = dict.fromkeys(counts, 1 + steps)
+    expected["ct_attention_cm"] = 0       # the folded model: serving head
+    res = dict(prep, **eval_steps(step, images.cuda(), sizes.cuda(), counts,
+                                  expected, steps, out_dir,
+                                  "profile_serving.txt"))
+    cpu_net = build_net(task, 300, device="cpu", fold_bn=True)
+    cpu_net.load_state_dict({k: v.cpu() for k, v in
+                             served.state_dict().items()
+                             if not k.endswith(QUANT_BUFFERS)})
+    attach(cpu_net, quant)
+    res["card_vs_cpu"] = card_vs_cpu_detections(step, cpu_net, images, sizes)
+
+    # the same calibration on the card and on the CPU (two images): the
+    # float forwards round differently, so an act_scale moves by ulps, and
+    # every int8 rounding it governs may move with it
+    few = seeded_images(seed + 200, 2, 300)
+    card = calibrate(fold_bn(net), [few.cuda()])
+    cpu_float = build_net(task, 300, device="cpu")
+    cpu_float.load_state_dict(state)
+    host = calibrate(fold_bn(cpu_float), [few])
+    rel = [abs(card[n].item() - v.item()) / v.item() for n, v in host.items()]
+    res["calibration_card_vs_cpu"] = {
+        "convs": len(rel), "differ": sum(r > 0 for r in rel),
+        "max_rel": max(rel), "tol": CALIB_TOL}
+    if not max(rel) <= CALIB_TOL:
+        raise AssertionError(f"card and CPU calibrations differ: "
+                             f"{res['calibration_card_vs_cpu']}")
     return res
 
 
@@ -626,9 +860,10 @@ def profile_step(fn, out_dir: str, table: str) -> dict:
 
 
 def kernels_line(results: dict) -> list:
-    """Every kernel of the eval and train paths: its launches on its path's
-    phase, its error against its plain version, and its times at that
-    path's batch (8 for eval, 64 for training)."""
+    """Every kernel of the eval, train and serving paths: its launches on
+    its path's phase, its error against its plain version (for NMS the
+    number of keep entries that differ), and its times at that path's
+    batch (8 for eval and serving, 64 for training)."""
     kern = results["kernel"]
     incre, timed, pool = kern["incre"], kern["train_timed"], kern["pool_timed"]
     attn_err = max(max(v for n, v in kern[c]["stats_err"].items()
@@ -657,6 +892,15 @@ def kernels_line(results: dict) -> list:
         ("pool2x2_relu_bwd", "pool2x2_relu.cu",
          "ct_tpu/ops/pool_packed_pallas.py:66", results["train"]["launches"],
          pool_err["bwd"], pool["bwd"]),
+        ("ct_attention_serving", "ct_attention_serving.cu",
+         "ct_tpu/ops/ct_attention.py:720", results["serving"]["launches"],
+         max(kern[c]["max_abs_err"] for c in
+             ("serving_incre", "serving_transfer", "serving_ragged",
+              "serving_ragged_narrow")), kern["serving_incre"]),
+        ("nms_mask", "nms.cu", "ct_tpu/ops/nms_pallas.py:35",
+         results["serving"]["launches"],
+         max(kern[c]["max_abs_err"] for c in ("nms", "nms_ties",
+                                              "nms_ragged")), kern["nms"]),
     ]
     return [{"name": name, "route": "cuda",
              "source": "ct_tpu_torch/csrc/" + src, "replaces": replaces,
@@ -694,6 +938,8 @@ def main(argv=None) -> int:
     for name, fn in (("env", phase_env), ("build", phase_build),
                      ("kernel", lambda: phase_kernel(args.seed)),
                      ("model", lambda: phase_model(args.seed, PROFILE_DIR)),
+                     ("serving", lambda: phase_serving(args.seed,
+                                                       PROFILE_DIR)),
                      ("train", lambda: phase_train(args.seed, PROFILE_DIR))):
         t0 = time.perf_counter()
         results[name] = fn()

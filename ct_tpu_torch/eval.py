@@ -23,12 +23,16 @@ logger = logging.getLogger(__name__)
 
 
 def make_eval_step(
-    net: RFBNet, priors_cs: torch.Tensor,
+    net: RFBNet, priors_cs: torch.Tensor, top_k: int = 200,
+    approx_top_k: bool = False, pool_size: int = 0,
 ) -> Callable[[torch.Tensor, Optional[torch.Tensor]], Detections]:
     """A step (images [B,3,S,S] NCHW, image_sizes [B,2] (h, w) or None) →
     ``Detections``, on the device of ``net`` and ``priors_cs``, with the
-    reference eval's thresholds (score 0.01, IoU 0.45, 200 candidates per
-    class, 200 detections per image)."""
+    reference eval's thresholds (score 0.01, IoU 0.45, 200 detections per
+    image) and ``top_k`` candidates per class; ``approx_top_k`` and
+    ``pool_size`` are the serving options of ``batched_nms``. A quantized
+    serving model carries its own scales, so the step needs nothing more
+    for it."""
 
     @torch.inference_mode()
     def step(images: torch.Tensor,
@@ -36,20 +40,22 @@ def make_eval_step(
         preds = net(images)
         conf, obj = eval_scores(preds)
         return postprocess(preds.loc, conf, obj, priors_cs,
-                           image_sizes=image_sizes)
+                           image_sizes=image_sizes, top_k=top_k,
+                           approx_top_k=approx_top_k, pool_size=pool_size)
 
     return step
 
 
 def run_inference(net: RFBNet, dataset, task: TaskSpec,
                   priors_cs: torch.Tensor, img_dim: int,
-                  batch_size: int = 32) -> List[list]:
+                  batch_size: int = 32, **step_options) -> List[list]:
     """Batched inference over ``dataset`` → the reference's ``all_boxes``:
     all_boxes[class][image] = float32 [n, 5] (x1, y1, x2, y2, score) in
     pixels. The final batch is padded to ``batch_size`` by repeating its
-    last image, so every step has the same shape."""
+    last image, so every step has the same shape. ``step_options`` go to
+    ``make_eval_step``."""
     device = priors_cs.device
-    eval_step = make_eval_step(net, priors_cs)
+    eval_step = make_eval_step(net, priors_cs, **step_options)
     num_images = len(dataset)
     num_classes = task.num_classes
     all_boxes = [[[] for _ in range(num_images)] for _ in range(num_classes)]

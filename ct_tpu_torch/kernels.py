@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 
 # Each kernel entry point: (source under csrc/ without ".cu", C symbol,
 # argtypes); all return int, the launch status.
@@ -46,6 +47,10 @@ SIGNATURES = {
                          (_P, _P, _L, _I, _I, _P)),
     "pool2x2_relu_bwd": ("pool2x2_relu", "pool2x2_relu_bwd_f32",
                          (_P, _P, _P, _P, _L, _I, _I, _P)),
+    "ct_attention_serving": ("ct_attention_serving",
+                             "ct_attention_serving_f32",
+                             (_P,) * 8 + (_I,) * 5 + (_F, _P)),
+    "nms_mask": ("nms", "nms_mask_f32", (_P, _P, _P, _I, _I, _F, _F, _P)),
 }
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
 
@@ -117,7 +122,8 @@ def launch(wrapper, name: str, tensors, ints) -> None:
     tensor's card and count the launch on ``wrapper.launches``.
 
     ``tensors`` are the entry's contiguous CUDA tensor arguments in order,
-    ``ints`` its integer arguments; a refused launch raises."""
+    ``ints`` its scalar (integer or float) arguments; a refused launch
+    raises."""
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{wrapper.__name__}: an input is not "

@@ -15,6 +15,12 @@ the port's own copy of ``variables_to_torch_state``
   Wz → Wz;  OBJ_Target → OBJ_Target.weight;  scale → tensor([5.])
 
 Layouts: conv [kh,kw,I,O] → [O,I,kh,kw]; linear [I,O] → [O,I].
+
+``quant_from_jax`` maps the JAX package's int8 ``quant`` collection
+(``ct_tpu/models/quantize.py``) into the port's conv names, and
+``serving_from_jax`` builds the port's serving model from JAX's folded
+variables and that collection, so that both packages run the serving
+model on the same scales.
 """
 
 from __future__ import annotations
@@ -110,6 +116,54 @@ def from_jax_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out["scale"] = np.asarray([CT_SCALE], np.float32)
     return {k: torch.from_numpy(np.array(v, order="C"))
             for k, v in out.items()}
+
+
+def torch_module_name(path) -> str:
+    """A flax module path (``('Norm', 'branch0_1', 'conv')``) → the port's
+    module name (``Norm.branch0.1.conv``)."""
+    parts = []
+    for key in path:
+        if key.startswith("vgg_"):
+            parts += ["base", key[len("vgg_"):]]
+        elif key.startswith(("extras_", "loc_", "conf_", "obj_", "branch")):
+            parts += key.rsplit("_", 1)
+        else:
+            parts.append(key)
+    return ".".join(parts)
+
+
+def quant_from_jax(quant: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The JAX package's ``quant`` collection (numpy leaves) → {the port's
+    conv name: {act_scale, kernel_int8 [O,I,kh,kw], kernel_scale
+    (, out_scale)}}, which ``models/quantize.attach`` puts on a folded
+    model."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+
+    def walk(node, path):
+        if "kernel_int8" in node:
+            q = {k: np.asarray(v) for k, v in node.items()}
+            q["kernel_int8"] = np.transpose(q["kernel_int8"], (3, 2, 0, 1))
+            out[torch_module_name(path)] = q
+            return
+        for key, child in node.items():
+            walk(child, path + (key,))
+
+    walk(quant, ())
+    return out
+
+
+def serving_from_jax(task, size: int, folded: Dict[str, Any],
+                     quant: Dict[str, Any], device="cuda"):
+    """The JAX package's folded variables (``fold_variables``) and its
+    ``quant`` collection → the port's folded, quantized model on
+    ``device``, on the same scales."""
+    from ct_tpu_torch.models.quantize import attach
+    from ct_tpu_torch.models.rfbnet import build_net
+
+    net = build_net(task, size, device=device, fold_bn=True)
+    net.load_state_dict(from_jax_variables(folded))
+    attach(net, quant_from_jax(quant))
+    return net
 
 
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:

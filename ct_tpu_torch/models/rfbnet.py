@@ -17,19 +17,28 @@ The forward returns raw logits for every head (softmax lives in
 ordered row-major over (row, col, anchor) per source map, as in the JAX
 package. The CT head runs class-major ([B, C, P]) around
 ``ct_attention_cm``, whose public layout that is.
+
+With ``fold_bn`` (the serving path, ``models/fold_bn.py``) every
+``BasicConv`` is a biased conv without BN, and a model with a CT head runs
+the fused serving head ``ct_attention_serving`` in its place. Its convs
+take the int8 path once ``models/quantize.py`` attaches their scales.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ct_tpu_torch import resolve_device
 from ct_tpu_torch.config import TaskSpec
-from ct_tpu_torch.models.layers import BasicConv, BasicRFB, BasicRFBa
-from ct_tpu_torch.ops.ct_attention import ct_attention_cm
+from ct_tpu_torch.models.layers import (
+    BasicConv, BasicRFB, BasicRFBa, Conv2d, MaxPool2d,
+)
+from ct_tpu_torch.ops.ct_attention import (
+    ct_attention_cm, ct_attention_serving,
+)
 from ct_tpu_torch.ops.pool_relu import pool2x2_relu
 
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "C",
@@ -83,6 +92,28 @@ def fused_pool_relu(size: int):
               and norm_idx not in (idx - 1, idx))
         return idx - 1 if ok else None
     return None
+
+
+def vgg_pool_chains(size: int = 300) -> List[Tuple[str, str]]:
+    """(producer, consumer) ``base`` convs separated only by ReLU and max
+    pooling: the int8 serving path chains quantization across them (the
+    producer emits int8 at the consumer's activation scale; round and clip
+    commute with ReLU and max, so that is exact). At 300 the (base.21,
+    base.24) chain also feeds the Norm source, which taps the int8 conv4_3
+    map: its calibrated absmax equals base.24's, since the 2×2 pool keeps
+    the maximum."""
+    pairs: List[Tuple[str, str]] = []
+    prev_conv: Optional[str] = None
+    pooled = False
+    for kind, idx, _spec in vgg_plan(size):
+        if kind == "conv":
+            name = f"base.{idx}"
+            if prev_conv is not None and pooled:
+                pairs.append((prev_conv, name))
+            prev_conv, pooled = name, False
+        else:
+            pooled = True
+    return pairs
 
 
 def norm_spec(size: int) -> Tuple[int, int]:
@@ -139,6 +170,7 @@ def mbox(size: int) -> List[int]:
 # entry; 64 is the test model's.
 CT_POOL = {300: (3, 2, 2, 2, 1, 1), 512: (3, 2, 2, 2, 2, 1, 1),
            64: (2, 1)}
+CT_SCALE = 5.0   # the fixed scale of the cosine classifier
 
 
 class Predictions(NamedTuple):
@@ -163,10 +195,12 @@ def _class_major(x: torch.Tensor, a: int, c: int) -> torch.Tensor:
 class RFBNet(nn.Module):
     """The detector. Input NCHW float images (BGR, mean-subtracted)."""
 
-    def __init__(self, task: TaskSpec, size: int = 300):
+    def __init__(self, task: TaskSpec, size: int = 300,
+                 fold_bn: bool = False):
         super().__init__()
         self.task = task
         self.size = size
+        self.fold_bn = fold_bn
         src_c = task.src_cls_dim
 
         layers: List[nn.Module] = []
@@ -174,19 +208,19 @@ class RFBNet(nn.Module):
         for kind, idx, spec in vgg_plan(size):
             assert idx == len(layers)
             if kind == "conv":
-                layers += [nn.Conv2d(in_ch, spec["out"], spec["kernel"],
-                                     padding=spec["pad"],
-                                     dilation=spec["dil"]),
+                layers += [Conv2d(in_ch, spec["out"], spec["kernel"],
+                                  padding=spec["pad"], dilation=spec["dil"]),
                            nn.ReLU()]
                 in_ch = spec["out"]
             else:
-                layers.append(nn.MaxPool2d(spec["kernel"], spec["stride"],
-                                           padding=spec.get("pad", 0),
-                                           ceil_mode=spec["ceil"]))
+                layers.append(MaxPool2d(spec["kernel"], spec["stride"],
+                                        padding=spec.get("pad", 0),
+                                        ceil_mode=spec["ceil"]))
         self.base = nn.ModuleList(layers)
         self.fused_relu_idx = fused_pool_relu(size)
         self.norm_idx, norm_ch = norm_spec(size)
-        self.Norm = BasicRFBa(norm_ch, norm_ch, stride=1, scale=1.0)
+        self.Norm = BasicRFBa(norm_ch, norm_ch, stride=1, scale=1.0,
+                              fold_bn=fold_bn)
 
         extras: List[nn.Module] = []
         src_ch = [norm_ch]
@@ -195,18 +229,20 @@ class RFBNet(nn.Module):
             if kind == "rfb":
                 extras.append(BasicRFB(in_ch, spec["out"],
                                        stride=spec["stride"], scale=1.0,
-                                       visual=spec["visual"]))
+                                       visual=spec["visual"],
+                                       fold_bn=fold_bn))
             else:
                 extras.append(BasicConv(in_ch, spec["out"], spec["kernel"],
                                         stride=spec["stride"],
-                                        padding=spec["pad"]))
+                                        padding=spec["pad"],
+                                        fold_bn=fold_bn))
             in_ch = spec["out"]
             if k in self.src_idx:
                 src_ch.append(in_ch)
         self.extras = nn.ModuleList(extras)
 
         self.anchors = mbox(size)
-        head = lambda ch, a, c: nn.Conv2d(ch, a * c, 3, padding=1)
+        head = lambda ch, a, c: Conv2d(ch, a * c, 3, padding=1)
         self.loc = nn.ModuleList(
             head(ch, a, 4) for ch, a in zip(src_ch, self.anchors))
         self.conf = nn.ModuleList(
@@ -222,7 +258,7 @@ class RFBNet(nn.Module):
             self.Wz = nn.Parameter(torch.zeros(src_c))
             self.OBJ_Target = nn.Linear(src_c, task.num_novel, bias=False)
             # fixed cosine-classifier scale, kept in the key space
-            self.register_buffer("scale", torch.tensor([5.0]))
+            self.register_buffer("scale", torch.tensor([CT_SCALE]))
             if task.setting == "incre":
                 self.fc_base = nn.Linear(src_c, src_c)
 
@@ -267,8 +303,9 @@ class RFBNet(nn.Module):
         if task.has_ct_head:
             conf_cm = torch.cat(conf, dim=2)               # [B, C, P]
             conf_feat = conf_cm.transpose(1, 2)
-            conf_out = self._context_transformer(conf_cm,
-                                                 torch.cat(keys, dim=1))
+            ct_head = (self._context_transformer_serving if self.fold_bn
+                       else self._context_transformer)
+            conf_out = ct_head(conf_cm, torch.cat(keys, dim=1))
         else:
             conf_feat = torch.cat(conf, dim=1)
             conf_out = conf_feat
@@ -293,20 +330,42 @@ class RFBNet(nn.Module):
             torch.sum(novel * novel, dim=1, keepdim=True))
         novel = torch.einsum("nc,bcp->bnp", self.OBJ_Target.weight,
                              novel) * self.scale               # [B, N, P]
+        return self._with_base(conf_cm, novel)
+
+    def _with_base(self, conf_cm: torch.Tensor,
+                   novel: torch.Tensor) -> torch.Tensor:
+        """[B, N, P] novel scores → [B, P, num_out], after the residual
+        ``fc_base`` projection of the source classes for ``incre``."""
         if self.task.setting == "incre":
             base = (torch.einsum("oc,bcp->bop", self.fc_base.weight, conf_cm)
                     + self.fc_base.bias[None, :, None] + conf_cm)
             return torch.cat([base, novel], dim=1).transpose(1, 2)
         return novel.transpose(1, 2)
 
+    def _context_transformer_serving(self, conf_cm: torch.Tensor,
+                                     keys: torch.Tensor) -> torch.Tensor:
+        """The serving CT head (``_context_transformer_serving`` of the JAX
+        package): θ projection, attention, residual, ℓ2 normalisation and
+        the cosine classifier in one ``ct_attention_serving`` call that
+        reads the class-major conf once. Returns [B, P, num_out]."""
+        k = (self.phi(keys) + keys).contiguous()           # [B, K, C]
+        v = (self.g(keys) + keys).contiguous()             # [B, K, C]
+        novel = ct_attention_serving(
+            conf_cm.contiguous(), k, v, self.theta.weight.t().contiguous(),
+            self.theta.bias, self.Wz, self.OBJ_Target.weight,
+            CT_SCALE)                                      # [B, N, P]
+        return self._with_base(conf_cm, novel)
 
-def build_net(task: TaskSpec, size: int = 300, device="cuda") -> RFBNet:
+
+def build_net(task: TaskSpec, size: int = 300, device="cuda",
+              fold_bn: bool = False) -> RFBNet:
     """The detector for ``task`` at ``size`` (300, 512, or the size-64
-    test model), in eval mode on ``device`` (``.train()`` for training)."""
+    test model), in eval mode on ``device`` (``.train()`` for training);
+    ``fold_bn`` builds the serving model, whose weights come folded."""
     if size not in (64, 300, 512):
         raise ValueError("Only RFBNet300 and RFBNet512 are supported "
                          "(plus the size-64 test variant).")
-    return RFBNet(task, size).to(resolve_device(device)).eval()
+    return RFBNet(task, size, fold_bn).to(resolve_device(device)).eval()
 
 
 def eval_scores(preds: Predictions) -> Tuple[torch.Tensor, torch.Tensor]:

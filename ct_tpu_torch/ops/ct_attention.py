@@ -26,6 +26,13 @@ launches in ``<wrapper>.launches``:
 the eval kernel; otherwise it goes through an autograd Function whose
 forward is the stats kernel and whose backward is the flash kernel, on
 the card and (through their plain versions) on the CPU alike.
+
+The serving path's fused head is a fourth kernel,
+``ct_attention_serving`` (``csrc/ct_attention_serving.cu``), the port of
+the JAX package's ``ct_attention_serving``: the θ projection, the same
+attention, the residual, the ℓ2 normalisation and the cosine classifier
+in one pass, from the class-major conf [B, C, P] to scores [B, N, P].
+Forward only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,30 +58,30 @@ def ct_attention_reference_cm(
     return base_cm + delta * wz[None, :, None]
 
 
-def _check(q_cm, k, v, base_cm, wz):
+def _check(q_cm, k, v, base_cm, wz, fn: str = "ct_attention_cm"):
     tensors = {"q_cm": q_cm, "k": k, "v": v, "base_cm": base_cm, "wz": wz}
     for name, t in tensors.items():
         if t.dtype != torch.float32:
-            raise TypeError(f"ct_attention_cm: {name} is {t.dtype}, "
+            raise TypeError(f"{fn}: {name} is {t.dtype}, "
                             "the kernel takes float32")
         if t.device != q_cm.device:
-            raise ValueError(f"ct_attention_cm: {name} is on {t.device}, "
+            raise ValueError(f"{fn}: {name} is on {t.device}, "
                              f"q_cm on {q_cm.device}")
     if q_cm.dim() != 3 or k.dim() != 3:
-        raise ValueError("ct_attention_cm: q_cm must be [B, C, P] and k "
+        raise ValueError(f"{fn}: q_cm must be [B, C, P] and k "
                          "[B, K, C]")
     b, c, p = q_cm.shape
     kk = k.shape[1]
     if (tuple(base_cm.shape) != (b, c, p) or tuple(k.shape) != (b, kk, c)
             or tuple(v.shape) != (b, kk, c) or tuple(wz.shape) != (c,)):
         raise ValueError(
-            "ct_attention_cm: shapes disagree: q_cm "
+            f"{fn}: shapes disagree: q_cm "
             f"{tuple(q_cm.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
             f"base_cm {tuple(base_cm.shape)}, wz {tuple(wz.shape)}")
     if min(b, c, p, kk) < 1:
-        raise ValueError("ct_attention_cm: empty input")
+        raise ValueError(f"{fn}: empty input")
     if c > MAX_CLASSES:
-        raise ValueError(f"ct_attention_cm: C={c} exceeds the kernel's "
+        raise ValueError(f"{fn}: C={c} exceeds the kernel's "
                          f"{MAX_CLASSES} classes")
 
 
@@ -206,3 +213,65 @@ def ct_attention_cm(
 
 
 ct_attention_cm.launches = 0
+
+
+MAX_NOVEL = 64     # the serving kernel's widest classifier
+
+
+def ct_attention_serving_reference(
+    conf_cm: torch.Tensor,     # [B, C, P] pre-CT logits
+    k: torch.Tensor,           # [B, K, C] φ(keys) + keys
+    v: torch.Tensor,           # [B, K, C] g(keys) + keys
+    w_theta: torch.Tensor,     # [C, C] θ kernel, (in, out)
+    b_theta: torch.Tensor,     # [C]
+    wz: torch.Tensor,          # [C]
+    obj_target: torch.Tensor,  # [N, C] class prototypes
+    scale: float = 5.0,
+) -> torch.Tensor:
+    """The plain serving head → [B, N, P]: materializes q, the [B, K, P]
+    affinity and novel."""
+    q = (torch.einsum("co,bcp->bop", w_theta, conf_cm)
+         + b_theta[None, :, None] + conf_cm)
+    attn = torch.softmax(torch.einsum("bkc,bcp->bkp", k, q), dim=1)
+    delta = torch.einsum("bkp,bkc->bcp", attn, v)
+    novel = conf_cm + delta * wz[None, :, None]
+    novel = novel * torch.rsqrt((novel * novel).sum(dim=1, keepdim=True))
+    return torch.einsum("nc,bcp->bnp", obj_target, novel) * scale
+
+
+def ct_attention_serving(conf_cm, k, v, w_theta, b_theta, wz, obj_target,
+                         scale: float = 5.0) -> torch.Tensor:
+    """Fused serving CT head → cosine-classifier scores [B, N, P] float32:
+
+        q     = Wθᵀ·conf + bθ + conf
+        novel = conf + softmax_K(kᵀq)·v·wz
+        out   = scale · OBJ·(novel / ‖novel‖₂)
+
+    CUDA tensors go to the kernel, whose launches
+    ``ct_attention_serving.launches`` counts; CPU tensors to the plain
+    version."""
+    _check(conf_cm, k, v, conf_cm, wz, "ct_attention_serving")
+    c = conf_cm.shape[1]
+    n = obj_target.shape[0]
+    for name, t, shape in (("w_theta", w_theta, (c, c)),
+                           ("b_theta", b_theta, (c,)),
+                           ("obj_target", obj_target, (n, c))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != conf_cm.device):
+            raise ValueError(f"ct_attention_serving: {name} must be float32 "
+                             f"{list(shape)} on {conf_cm.device}")
+    if not 1 <= n <= MAX_NOVEL:
+        raise ValueError(f"ct_attention_serving: N={n} classes, the kernel "
+                         f"takes 1 to {MAX_NOVEL}")
+    if _device("ct_attention_serving", conf_cm) == "cpu":
+        return ct_attention_serving_reference(conf_cm, k, v, w_theta,
+                                              b_theta, wz, obj_target, scale)
+    b, _, p = conf_cm.shape
+    out = conf_cm.new_empty((b, n, p))
+    kernels.launch(ct_attention_serving, "ct_attention_serving",
+                   (conf_cm, k, v, w_theta, b_theta, wz, obj_target, out),
+                   (b, c, p, k.shape[1], n, scale))
+    return out
+
+
+ct_attention_serving.launches = 0

@@ -43,12 +43,15 @@ def postprocess(
     iou_threshold: float = 0.45,
     top_k: int = 200,
     max_per_image: int = 200,
+    approx_top_k: bool = False,
+    pool_size: int = 0,
 ) -> Detections:
     """Full eval-path post-processing for a batch.
 
     With ``image_sizes`` the boxes are scaled to pixel coordinates before
     NMS and IoU uses the +1 pixel area, like the reference; without, boxes
-    stay in percent coordinates and the +1 is dropped.
+    stay in percent coordinates and the +1 is dropped. ``top_k``,
+    ``approx_top_k`` and ``pool_size`` are ``batched_nms``'s.
     """
     boxes, scores = decode_and_fuse(loc, conf_probs, obj_probs, priors,
                                     variances)
@@ -66,4 +69,6 @@ def postprocess(
         top_k=top_k,
         max_per_image=max_per_image,
         pixel_offset=pixel_offset,
+        approx_top_k=approx_top_k,
+        pool_size=pool_size,
     )

@@ -121,8 +121,10 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    for flag, is_set, item in UNPORTED:
+def check_ported(args, unported=UNPORTED) -> None:
+    """Raise on the first flag of ``unported`` that ``args`` sets, naming
+    the ROADMAP item that will port it."""
+    for flag, is_set, item in unported:
         if is_set(args):
             raise SystemExit(f"{flag} is not ported to ct_tpu_torch yet "
                              f"(ROADMAP: {item})")

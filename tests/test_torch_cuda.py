@@ -12,10 +12,18 @@ plain version on the same card, f32 with TF32 off:
   against the plain flash backward and against torch autograd of the
   plain forward; and the autograd path runs the two kernels once each;
 * ``pool2x2_relu_fwd``/``_bwd``: equal, bit for bit, to torch autograd of
-  ``F.relu`` then ``F.max_pool2d`` on tie-heavy inputs.
+  ``F.relu`` then ``F.max_pool2d`` on tie-heavy inputs;
+* ``ct_attention_serving`` (the fused serving CT head): max |Δ| ≤ 1e-4 of
+  the largest score, against its plain version (sums over up to 1,858 keys
+  and the θ and classifier products in another order);
+* ``nms_mask`` (the NMS kernel): the keep mask equal, bit for bit, to the
+  plain fixpoint loop's on the card and on the CPU, on seeded and
+  tie-heavy boxes; ``batched_nms`` on the card equal to the CPU's.
 
 The size-64 model on the card is held to the same model on the CPU, in
-eval mode and for one training loss-and-gradients call (over the anchors
+eval mode, as the int8 serving model (on the same scales: the int8 sums
+are exact, the float heads agree to 1e-4) and for one training
+loss-and-gradients call (over the anchors
 the CPU mined: losses to rtol 1e-4, each gradient to 1e-3 of its largest
 entry; the shallow size-64 net keeps its f32 sums short enough for that).
 """
@@ -31,7 +39,9 @@ from ct_tpu_torch.ops.ct_attention import (
     ct_attention_cm, ct_attention_cm_bwd_flash,
     ct_attention_cm_bwd_flash_reference, ct_attention_cm_stats,
     ct_attention_cm_stats_reference, ct_attention_reference_cm,
+    ct_attention_serving, ct_attention_serving_reference,
 )
+from ct_tpu_torch.ops.nms import batched_nms, nms_mask, nms_mask_reference
 from ct_tpu_torch.ops.pool_relu import (
     pool2x2_relu, pool2x2_relu_bwd, pool2x2_relu_fwd,
 )
@@ -210,3 +220,104 @@ def test_train_loss_and_grads_on_the_card_match_the_cpu(cuda):
         scale = q.grad.abs().max().item()
         assert (p.grad.cpu() - q.grad).abs().max().item() <= max(
             1e-3 * scale, 1e-6), name
+
+
+def serving_inputs(seed, b, c, p, k, n, device):
+    rng = np.random.default_rng(seed)
+    t = lambda *shape, scale=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+    return (t(b, c, p), t(b, k, c, scale=0.3), t(b, k, c), t(c, c, scale=0.2),
+            t(c, scale=0.1), t(c, scale=0.3), t(n, c))
+
+
+@pytest.mark.parametrize("b,c,p,k,n", [(2, 15, 11620, 1858, 5),
+                                       (2, 60, 11620, 1858, 20),
+                                       (3, 60, 1001, 97, 20),
+                                       (2, 7, 130, 65, 3),
+                                       (1, 64, 257, 1, 64)])
+def test_serving_kernel_matches_plain_version(cuda, b, c, p, k, n):
+    args = serving_inputs(c + p + n, b, c, p, k, n, cuda)
+    before = ct_attention_serving.launches
+    out = ct_attention_serving(*args)
+    ref = ct_attention_serving_reference(*args)
+    torch.cuda.synchronize()
+    assert ct_attention_serving.launches == before + 1
+    assert out.shape == (b, n, p)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def nms_case(seed, n, k, device, ties):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, 60 if ties else 500, (n, k, 2))
+    half = rng.uniform(2, 15 if ties else 120, (n, k, 2))
+    boxes = np.concatenate([centers - half, centers + half], -1)
+    if ties:
+        boxes = np.round(boxes)
+    valid = rng.uniform(size=(n, k)) < 0.9
+    return (torch.from_numpy(boxes.astype(np.float32)).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+@pytest.mark.parametrize("n,k,offset,ties", [(160, 200, 1.0, False),
+                                             (160, 200, 1.0, True),
+                                             (160, 128, 0.0, True),
+                                             (7, 33, 1.0, True),
+                                             (3, 1024, 1.0, False)])
+def test_nms_kernel_keep_mask_is_the_plain_one(cuda, n, k, offset, ties):
+    boxes, valid = nms_case(n + k, n, k, cuda, ties)
+    before = nms_mask.launches
+    keep = nms_mask(boxes, valid, 0.45, offset)
+    torch.cuda.synchronize()
+    assert nms_mask.launches == before + 1
+    assert keep.dtype == torch.bool and keep.shape == valid.shape
+    assert torch.equal(keep, nms_mask_reference(boxes, valid, 0.45, offset))
+    assert torch.equal(keep.cpu(), nms_mask(boxes.cpu(), valid.cpu(), 0.45,
+                                            offset))
+
+
+def test_batched_nms_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(4)
+    b, p, c = 2, 3000, 21
+    mins = rng.uniform(0, 400, (b, p, 2))
+    boxes = np.concatenate([mins, mins + rng.uniform(10, 150, (b, p, 2))],
+                           -1).astype(np.float32)
+    scores = (rng.integers(0, 12, (b, p, c)) / 16.0).astype(np.float32)
+    for kw in ({}, {"approx_top_k": True}, {"pool_size": 512,
+                                            "top_k": 128}):
+        ref = batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                          **kw)
+        out = batched_nms(torch.from_numpy(boxes).to(cuda),
+                          torch.from_numpy(scores).to(cuda), **kw)
+        for a, r in zip(out, ref):
+            assert torch.equal(a.cpu(), r), kw
+
+
+def test_serving_model_on_the_card_matches_the_cpu(cuda):
+    from ct_tpu_torch.models.fold_bn import fold_bn
+    from ct_tpu_torch.models.quantize import attach, calibrate, quantize
+    from ct_tpu_torch.models.rfbnet import vgg_pool_chains
+
+    task = resolve_task(2, "incre", "ours", "VOC")
+    torch.manual_seed(0)
+    cpu_net = build_net(task, 64, device="cpu")
+    with torch.no_grad():
+        cpu_net.Wz.normal_(0, 0.3)
+    cpu_net = fold_bn(cpu_net)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 3, 64, 64)).astype(np.float32))
+    quant = quantize(cpu_net, calibrate(cpu_net, [x]),
+                     chains=vgg_pool_chains(64))
+    gpu_net = build_net(task, 64, device=cuda, fold_bn=True)
+    gpu_net.load_state_dict({k: v for k, v in cpu_net.state_dict().items()
+                             if not k.endswith(("act_scale", "kernel_int8",
+                                                "kernel_scale", "out_scale"))
+                             })
+    attach(gpu_net, quant)
+    before = ct_attention_serving.launches
+    with torch.inference_mode():
+        ref = cpu_net(x)
+        out = gpu_net(x.to(cuda))
+    assert ct_attention_serving.launches == before + 1
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)

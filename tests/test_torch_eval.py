@@ -11,7 +11,8 @@
 * The port's eval CLI on a 3-image VOC root: files written, ``--retest``,
   and per-class AP against the JAX package's ``voc_eval``.
 * Gated by ``CT_TPU_SLOW_TESTS``: the CLI over all 500 fixture images
-  against the JAX package's recorded mAP (|ΔmAP| ≤ 0.003) and detections.
+  against the JAX package's recorded mAP (|ΔmAP| ≤ 0.003) and detections,
+  in f32 and on the int8 serving path (``--int8 --calib-images 8``).
 """
 
 import json
@@ -201,29 +202,40 @@ def test_eval_cli_on_a_small_voc_root(tmp_path, monkeypatch):
         assert ap == j_ap, cls
 
 
+# the JAX package's recorded evals of ref_model.pth on the 500 images
+# (docs/PARITY.md): f32, and the int8 backbone calibrated on 8 images
+VOC500 = {
+    "f32": ([], "ours_eval", 0.74351, 0.61613),
+    "int8": (["--int8", "--calib-images", "8"], "ours_eval_int8", 0.74366,
+             0.61692),
+}
+
+
 @pytest.mark.skipif(not os.environ.get("CT_TPU_SLOW_TESTS"),
                     reason="needs CT_TPU_SLOW_TESTS=1 (500-image eval on "
                            "the CPU, ~10 min)")
-def test_voc500_map_matches_jax(tmp_path, monkeypatch):
+@pytest.mark.parametrize("config", list(VOC500))
+def test_voc500_map_matches_jax(tmp_path, monkeypatch, config):
     """The port's CLI over the 500-image fixture vs the JAX package's
-    recorded eval of the same weights (.parity_p2/ours_eval.json)."""
+    recorded eval of the same weights (.parity_p2/ours_eval*.json)."""
     from ct_tpu.tools.diff_detections import diff
     from ct_tpu_torch import test as cli
 
+    flags, ref_dir, ref_map, ref_novel = VOC500[config]
     monkeypatch.setenv("VOC_ROOT", VOC_ROOT)
     save = str(tmp_path / "out")
     res = cli.main(["-p", "2", "--setting", "incre", "--split", "1",
                     "--load-file", REF_MODEL, "--save-folder", save,
-                    "-b", "8", "--device", "cpu"])
-    with open(os.path.join(PARITY, "ours_eval.json")) as f:
+                    "-b", "8", "--device", "cpu"] + flags)
+    with open(os.path.join(PARITY, ref_dir + ".json")) as f:
         ref = json.load(f)
     stats = diff(os.path.join(save, "inference", "detections.pkl"),
-                 os.path.join(PARITY, "ours_eval", "inference",
+                 os.path.join(PARITY, ref_dir, "inference",
                               "detections.pkl"))
     print(json.dumps({"port": res, "jax": ref, "diff": stats},
                      default=float))
-    assert abs(res["mAP"] - 0.74351) <= 0.003
-    assert abs(res["novel_mAP"] - 0.61613) <= 0.003
+    assert abs(res["mAP"] - ref_map) <= 0.003
+    assert abs(res["novel_mAP"] - ref_novel) <= 0.003
     assert stats["match_rate"] > 0.95
 
 

@@ -47,6 +47,17 @@ def imported_roots(node):
     return []
 
 
+def test_the_checks_cover_every_module_of_the_port():
+    mods = set(port_modules())
+    assert {"chip_smoke", "ct_tpu_torch.models.fold_bn",
+            "ct_tpu_torch.models.quantize", "ct_tpu_torch.ops.nms",
+            "ct_tpu_torch.ops.ct_attention", "ct_tpu_torch.test"} <= mods
+    n_files = sum(len([f for f in files if f.endswith(".py")])
+                  for root, _, files in os.walk(PACKAGE)
+                  if "__pycache__" not in root)
+    assert len(mods) == n_files + 1
+
+
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     for path in port_sources():
         with open(path) as f:
