@@ -25,7 +25,18 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            the unfused head in library calls; ``nms_mask`` (the NMS kernel)
            with keep masks equal to the plain fixpoint loop's on seeded
            and tie-heavy boxes at N=160 rows of K=200, timed beside the
-           loop (whose sweeps it counts).
+           loop (whose sweeps it counts). ``ct_attention_cm_bwd`` (the
+           blockwise backward of CT_ATTENTION_FLASH=0) at B=8 with C=15
+           and 60 and at ragged shapes, also through autograd, timed at
+           B=64 beside the SDPA backward; the row-major ``ct_attention``
+           and ``ct_attention_bwd`` at the same shapes, timed at the
+           benches' batches (128 forward, 64 backward) at C=60;
+           ``ct_attention_variant`` (the bfloat16 exponential) at the
+           same shapes within half of the bfloat16 rounding's own effect
+           and further than that from ``ct_attention``, timed at B=128;
+           ``bias_relu_bwd`` (mask bit for bit) at [8, 64, 300, 300] and a
+           ragged shape, timed at [64, 64, 300, 300] beside
+           ``threshold_backward`` and the channel sum.
 4. model   the phase-2 incre split-1 RFBNet300 with ``ref_model.pth`` on
            the card: 1 warm-up and 3 timed eval steps on 8 seeded images
            (images/s from the median step), the kernels' launch counts
@@ -47,8 +58,20 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            training kernels over those steps, one profiled step, and one
            loss-and-gradients call at batch 2 on the card and on the CPU
            from the same state, whose losses and gradients must agree.
-6. kernels one line listing every kernel of the three paths with its
-           launches on its path's phase, error and times.
+           Then CT_ATTENTION_FLASH=0 (``ct_flash=False``): one
+           loss-and-gradients call with each backward from the same
+           state and batch, which must agree, and 1 warm-up and 3 timed
+           steps with the blockwise backward and its launch counts.
+6. transfer phase-2 transfer (C=60) from seeded weights: 1 warm-up and 3
+           timed steps at batch 64 with each backward (images/s, peak
+           memory, launches, finite losses).
+7. bench   the port's kernel benches (``ct_tpu_torch/scripts``): the
+           attention forward bench at B=128, the backward bench at 300
+           (B=64) and 512 (B=16), the bias+ReLU backward bench, few
+           iterations each, with the launches of their kernels; their
+           lines go to build/chip_smoke/bench_*.txt.
+8. kernels one line listing every kernel of the port with its launches
+           on its path's phase, error and times.
 
 Any failure raises and exits non-zero with no "ok" line. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -104,6 +127,19 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-2
 TRAIN_GRAD_FLOOR = 1e-2
 TRAIN_BATCH, TRAIN_STEPS = 64, 3
+# the blockwise train step against the flash one, same state and batch on
+# the card: the losses (the same forward kernel) to rtol 1e-5; the CT
+# head's gradients, which the two backward kernels compute in other f32
+# orders, to ‖Δ‖₂ ≤ 1e-4·‖g‖₂; the rest, behind cuDNN's backward, at the
+# card-vs-CPU band above
+BLOCKWISE_LOSS_RTOL = 1e-5
+BLOCKWISE_CT_GRAD_TOL = 1e-4
+CT_PARAMS = ("theta.", "phi.", "g.", "Wz", "OBJ_Target.")
+# the bias+ReLU backward's dbias: |Δ| ≤ 1e-5 of the channel's Σ|masked|
+# (f32 sums over up to 5.8 million values in another order)
+DBIAS_TOL = 1e-5
+# the attention benches' batches: the forward bench's and the backward's
+BENCH_FWD_BATCH, BENCH_BWD_BATCH = 128, 64
 
 
 def emit(obj) -> None:
@@ -330,6 +366,37 @@ def bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def device_normal(rng, shape, scale: float = 1.0):
+    """Seeded normal float32 values made on the card by a generator seeded
+    from ``rng``: large inputs cost no host time."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    return torch.randn(tuple(shape), generator=gen, device=dev) * scale
+
+
+def grads_rel_err(grads, plain) -> dict:
+    """max |kernel - plain| over max |plain|, per gradient."""
+    return {name: (a - r).abs().max().item() / r.abs().max().item()
+            for name, a, r in zip(("dq", "dk", "dv", "dwz"), grads, plain)}
+
+
+def sdpa_backward_ms(q_rm, k, v, g_rm, iters: int) -> float:
+    """The yardstick of a backward: one library call, the autograd
+    backward of ``scaled_dot_product_attention`` on [B, 1, P, C] queries
+    with unscaled scores."""
+    import torch
+    import torch.nn.functional as F
+
+    q4, k4, v4 = (x[:, None].contiguous().detach().requires_grad_()
+                  for x in (q_rm, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+    g4 = g_rm[:, None].contiguous()
+    return cuda_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), g4,
+                                               retain_graph=True), iters)
+
+
 def training_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
     """``ct_attention_cm_stats`` and ``ct_attention_cm_bwd_flash`` against
     their plain versions (and the flash backward against torch autograd
@@ -392,11 +459,8 @@ def training_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
     torch.cuda.empty_cache()
     # yardsticks: one library call of the same attention on the row-major
     # layout ([B, 1, P, C] queries, unscaled scores), forward and backward
-    q_rm = q.transpose(1, 2).contiguous()[:, None].requires_grad_()
-    k4 = k[:, None].clone().requires_grad_()
-    v4 = v[:, None].clone().requires_grad_()
-    lib_out = F.scaled_dot_product_attention(q_rm, k4, v4, scale=1.0)
-    lib_g = (g * wz[None, :, None]).transpose(1, 2).contiguous()[:, None]
+    q_rm = q.transpose(1, 2).contiguous()[:, None]
+    k4, v4 = k[:, None], v[:, None]
     with torch.no_grad():
         res["stats"] = dict(
             ms=cuda_ms(lambda: ct_attention_cm_stats(q, k, v, base, wz), 10),
@@ -413,8 +477,207 @@ def training_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
                 q, k, v, wz, g, m, z, colsum), 3, warmup=1),
             **bound(10 * b * p * kk * c,
                     4 * (3 * b * c * p + 4 * b * kk * c + c + 3 * b * p)))
-    res["bwd"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (q_rm, k4, v4), lib_g, retain_graph=True), 5)
+    res["bwd"]["library_ms"] = sdpa_backward_ms(
+        q.transpose(1, 2), k, v, (g * wz[None, :, None]).transpose(1, 2), 5)
+    return res
+
+
+def blockwise_case(rng, b, c, p, kk, time_it: bool) -> dict:
+    """``ct_attention_cm_bwd`` (the blockwise backward, row 4) against its
+    plain version, and the autograd of ``ct_attention_cm(flash=False)``
+    against torch autograd of the plain forward."""
+    import torch
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_cm, ct_attention_cm_bwd, ct_attention_cm_bwd_reference,
+        ct_attention_reference_cm,
+    )
+
+    t = lambda *shape, scale=1.0: device_normal(rng, shape, scale)
+    q, base, g = t(b, c, p), t(b, c, p), t(b, c, p)
+    k, v = t(b, kk, c), t(b, kk, c)
+    wz = t(c, scale=0.1)
+    with torch.no_grad():
+        grads = ct_attention_cm_bwd(q, k, v, wz, g)
+        plain = ct_attention_cm_bwd_reference(q, k, v, wz, g)
+        rel = grads_rel_err(grads, plain)
+        err = max((a - r).abs().max().item() for a, r in zip(grads, plain))
+        del grads, plain
+    args = [x.clone().requires_grad_() for x in (q, k, v, base, wz)]
+    auto = torch.autograd.grad(ct_attention_cm(*args, flash=False), args, g)
+    plain = torch.autograd.grad(ct_attention_reference_cm(*args), args, g)
+    for name, a, r in zip(("dq", "dk", "dv", "dbase", "dwz"), auto, plain):
+        rel[name + "_autograd"] = ((a - r).abs().max().item()
+                                   / r.abs().max().item())
+    del args, auto, plain
+    torch.cuda.synchronize()
+    res = {"B": b, "C": c, "P": p, "K": kk, "max_abs_err": err,
+           "rel_err": rel, "tol": BWD_TOL}
+    if not max(rel.values()) <= BWD_TOL:
+        raise AssertionError(f"ct_attention_cm_bwd disagrees with its plain "
+                             f"version: {res}")
+    if time_it:
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            res.update(
+                ms=cuda_ms(lambda: ct_attention_cm_bwd(q, k, v, wz, g), 5),
+                plain_ms=cuda_ms(lambda: ct_attention_cm_bwd_reference(
+                    q, k, v, wz, g), 3, warmup=1),
+                **bound(12 * b * p * kk * c,
+                        4 * (3 * b * c * p + 4 * b * kk * c + 2 * c)))
+        res["library_ms"] = sdpa_backward_ms(
+            q.transpose(1, 2), k, v, (g * wz[None, :, None]).transpose(1, 2),
+            5)
+    return res
+
+
+def rowmajor_case(rng, b, c, p, kk, time_fwd: int = 0,
+                  time_bwd: int = 0) -> dict:
+    """The row-major ``ct_attention`` (forward) and ``ct_attention_bwd``
+    (row 5) against their plain versions; timed at batch ``time_fwd`` and
+    ``time_bwd`` (0: not timed) on inputs of that batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention, ct_attention_bwd, ct_attention_bwd_reference,
+        ct_attention_reference,
+    )
+
+    def inputs(n):
+        t = lambda *shape, scale=1.0: device_normal(rng, shape, scale)
+        return (t(n, p, c), t(n, kk, c), t(n, kk, c), t(n, p, c),
+                t(c, scale=0.1), t(n, p, c))
+
+    q, k, v, base, wz, g = inputs(b)
+    with torch.no_grad():
+        err = (ct_attention(q, k, v, base, wz)
+               - ct_attention_reference(q, k, v, base, wz)).abs().max().item()
+        grads = ct_attention_bwd(q, k, v, wz, g)
+        plain = ct_attention_bwd_reference(q, k, v, wz, g)
+        rel = grads_rel_err(grads, plain)
+        bwd_err = max((a - r).abs().max().item() for a, r in zip(grads,
+                                                                 plain))
+        del grads, plain
+    torch.cuda.synchronize()
+    res = {"B": b, "C": c, "P": p, "K": kk, "fwd_max_abs_err": err,
+           "fwd_tol": KERNEL_TOL, "bwd_rel_err": rel, "bwd_tol": BWD_TOL,
+           "bwd_max_abs_err": bwd_err}
+    if not (err <= KERNEL_TOL and max(rel.values()) <= BWD_TOL):
+        raise AssertionError(f"the row-major kernels disagree with their "
+                             f"plain versions: {res}")
+    with torch.no_grad():
+        if time_fwd:
+            torch.cuda.empty_cache()
+            q, k, v, base, wz, _ = inputs(time_fwd)
+            n = time_fwd
+            res["fwd"] = dict(
+                batch=n,
+                ms=cuda_ms(lambda: ct_attention(q, k, v, base, wz), 10),
+                plain_ms=cuda_ms(lambda: ct_attention_reference(
+                    q, k, v, base, wz), 3, warmup=1),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q[:, None], k[:, None], v[:, None], scale=1.0), 10),
+                **bound(4 * n * p * kk * c,
+                        4 * (3 * n * p * c + 2 * n * kk * c + c)))
+        if time_bwd:
+            torch.cuda.empty_cache()
+            q, k, v, base, wz, g = inputs(time_bwd)
+            n = time_bwd
+            res["bwd"] = dict(
+                batch=n,
+                ms=cuda_ms(lambda: ct_attention_bwd(q, k, v, wz, g), 5),
+                plain_ms=cuda_ms(lambda: ct_attention_bwd_reference(
+                    q, k, v, wz, g), 3, warmup=1),
+                **bound(12 * n * p * kk * c,
+                        4 * (3 * n * p * c + 4 * n * kk * c + 2 * c)))
+    if time_bwd:
+        res["bwd"]["library_ms"] = sdpa_backward_ms(q, k, v, g * wz, 5)
+    return res
+
+
+def variant_case(rng, b, c, p, kk, time_it: bool) -> dict:
+    """``ct_attention_variant`` (row 10, the bfloat16 exponential) against
+    its plain version on the attention bench's inputs (normal × 0.3). The
+    band is half of what the bfloat16 rounding itself moves the output by,
+    max |plain bf16 - plain f32| on the same inputs: a weight rounded a
+    bfloat16 step the other way, where the kernel's f32 score lands on the
+    other side of a rounding boundary, moves the output by a few percent of
+    that (PERF.md §6, row 10), while a kernel that kept its exponential in
+    float32 would be off by all of it. The kernel's output must also differ
+    from the float32 kernel's (``ct_attention``) by more than the band."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention, ct_attention_reference, ct_attention_variant,
+        ct_attention_variant_reference,
+    )
+
+    t = lambda *shape: device_normal(rng, shape, 0.3)
+    q, k, v, base, wz = t(b, p, c), t(b, kk, c), t(b, kk, c), t(b, p, c), t(c)
+    with torch.no_grad():
+        out = ct_attention_variant(q, k, v, base, wz)
+        plain = ct_attention_variant_reference(q, k, v, base, wz)
+        tol = 0.5 * (plain - ct_attention_reference(q, k, v, base, wz)
+                     ).abs().max().item()
+        err = (out - plain).abs().max().item()
+        from_f32 = (out - ct_attention(q, k, v, base, wz)).abs().max().item()
+        del plain
+        torch.cuda.synchronize()
+        res = {"B": b, "C": c, "P": p, "K": kk, "max_abs_err": err,
+               "tol": tol, "max_abs_from_f32_kernel": from_f32}
+        if not (err <= tol < from_f32):
+            raise AssertionError(f"ct_attention_variant disagrees with its "
+                                 f"plain version or ignores its bfloat16 "
+                                 f"exponential: {res}")
+        if time_it:
+            torch.cuda.empty_cache()
+            res.update(
+                ms=cuda_ms(lambda: ct_attention_variant(q, k, v, base, wz),
+                           10),
+                plain_ms=cuda_ms(lambda: ct_attention_variant_reference(
+                    q, k, v, base, wz), 3, warmup=1),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q[:, None], k[:, None], v[:, None], scale=1.0), 10),
+                **bound(4 * b * p * kk * c,
+                        4 * (3 * b * p * c + 2 * b * kk * c + c)))
+    return res
+
+
+def bias_relu_case(rng, shape, time_it: bool) -> dict:
+    """``bias_relu_bwd`` (row 9): the mask bit for bit the plain version's,
+    dbias within DBIAS_TOL of each channel's Σ|masked|; timed beside
+    ``threshold_backward`` and the channel sum."""
+    import torch
+
+    from ct_tpu_torch.ops.bias_relu import (
+        bias_relu_bwd, bias_relu_bwd_reference,
+    )
+    from ct_tpu_torch.scripts.bench_bias_relu_bwd import library
+
+    g = device_normal(rng, shape)
+    y = torch.relu(device_normal(rng, shape))
+    masked, dbias = bias_relu_bwd(g, y)
+    ref, ref_dbias = bias_relu_bwd_reference(g, y)
+    scale = ref.abs().sum(dim=(0, 2, 3))
+    torch.cuda.synchronize()
+    res = {"shape": list(shape), "mask_bitexact": bool(torch.equal(masked,
+                                                                   ref)),
+           "max_abs_err": (dbias - ref_dbias).abs().max().item(),
+           "dbias_rel_err": ((dbias - ref_dbias).abs() / scale).max().item(),
+           "tol": DBIAS_TOL}
+    if not (res["mask_bitexact"] and res["dbias_rel_err"] <= DBIAS_TOL):
+        raise AssertionError(f"bias_relu_bwd disagrees with its plain "
+                             f"version: {res}")
+    del masked, ref
+    if time_it:
+        n = g.numel()
+        res.update(ms=cuda_ms(lambda: bias_relu_bwd(g, y), 10),
+                   plain_ms=cuda_ms(lambda: bias_relu_bwd_reference(g, y),
+                                    10),
+                   library_ms=cuda_ms(lambda: library(g, y), 10),
+                   **bound(2 * n, 12 * n + 4 * shape[1]))
     return res
 
 
@@ -506,6 +769,32 @@ def phase_kernel(seed: int) -> dict:
         "pool": pool_case(rng, (8, 64, 300, 300), False),
         "pool_ragged": pool_case(rng, (3, 5, 6, 10), False),
         "pool_timed": pool_case(rng, (TRAIN_BATCH, 64, 300, 300), True),
+        # the blockwise backward (CT_ATTENTION_FLASH=0): checked at batch 8,
+        # timed at the train step's batch
+        "blockwise_incre": blockwise_case(rng, 8, 15, 11620, 1858, False),
+        "blockwise_transfer": blockwise_case(rng, 8, 60, 11620, 1858, False),
+        "blockwise_ragged": blockwise_case(rng, 3, 60, 1001, 97, False),
+        "blockwise_ragged_narrow": blockwise_case(rng, 2, 7, 130, 65, False),
+        "blockwise_timed": blockwise_case(rng, TRAIN_BATCH, 15, 11620, 1858,
+                                          True),
+        # the row-major attention of the kernel benches: checked at batch
+        # 8, timed at the benches' batches at the transfer width
+        "rowmajor_incre": rowmajor_case(rng, 8, 15, 11620, 1858),
+        "rowmajor_transfer": rowmajor_case(
+            rng, 8, 60, 11620, 1858, BENCH_FWD_BATCH, BENCH_BWD_BATCH),
+        "rowmajor_ragged": rowmajor_case(rng, 3, 60, 1001, 97),
+        "rowmajor_ragged_narrow": rowmajor_case(rng, 2, 7, 130, 65),
+        # the attention bench's bfloat16 variant (its float32 one is the
+        # row-major forward above), timed at the bench's batch
+        "variant_incre": variant_case(rng, 8, 15, 11620, 1858, False),
+        "variant_transfer": variant_case(rng, 8, 60, 11620, 1858, False),
+        "variant_ragged": variant_case(rng, 3, 60, 1001, 97, False),
+        "variant_timed": variant_case(rng, BENCH_FWD_BATCH, 60, 11620, 1858,
+                                      True),
+        # the bias+ReLU backward at the bench's first shape, NCHW
+        "bias_relu": bias_relu_case(rng, (8, 64, 300, 300), False),
+        "bias_relu_ragged": bias_relu_case(rng, (3, 5, 7, 9), False),
+        "bias_relu_timed": bias_relu_case(rng, (64, 64, 300, 300), True),
     }
     torch.cuda.empty_cache()
     return res
@@ -706,16 +995,66 @@ def seeded_targets(seed: int, n: int, max_objs: int = 4) -> dict:
             "valid": torch.from_numpy(valid)}
 
 
+def training_counts() -> dict:
+    """The kernels a train step may launch, by name."""
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_cm, ct_attention_cm_bwd, ct_attention_cm_bwd_flash,
+        ct_attention_cm_stats,
+    )
+    from ct_tpu_torch.ops.pool_relu import pool2x2_relu_bwd, pool2x2_relu_fwd
+
+    return {"ct_attention_cm": ct_attention_cm,
+            "ct_attention_cm_stats": ct_attention_cm_stats,
+            "ct_attention_cm_bwd_flash": ct_attention_cm_bwd_flash,
+            "ct_attention_cm_bwd": ct_attention_cm_bwd,
+            "pool2x2_relu_fwd": pool2x2_relu_fwd,
+            "pool2x2_relu_bwd": pool2x2_relu_bwd}
+
+
+def train_steps(step, train_state, batch, flash: bool, steps: int) -> dict:
+    """1 warm-up and ``steps`` timed train steps on the card with the CT
+    attention's flash or blockwise backward: images/s from the median
+    step, finite losses, peak memory, and the launches of the training
+    kernels over them, which must be those of the chosen backward."""
+    import torch
+
+    train_state.model.ct_flash = flash
+    counts = training_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counts.values():
+        fn.launches = 0
+    times, losses = [], []
+    for _ in range(1 + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(train_state, batch)
+        losses.append({k: float(v) for k, v in out.items()})
+        times.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counts.items()}
+    used = (("ct_attention_cm_stats", "ct_attention_cm_bwd_flash") if flash
+            else ("ct_attention_cm", "ct_attention_cm_bwd"))
+    expected = {name: (1 + steps if name in used or name.startswith("pool")
+                       else 0) for name in counts}
+    if launches != expected:
+        raise AssertionError(f"launches over {1 + steps} train steps: "
+                             f"{launches}, expected {expected}")
+    if not all(math.isfinite(v) for row in losses for v in row.values()):
+        raise AssertionError(f"non-finite train losses: {losses}")
+    median_s = sorted(times[1:])[steps // 2]
+    n = batch["image"].shape[0]
+    return {"backward": "flash" if flash else "blockwise", "batch": n,
+            "warmup_s": times[0], "step_s": times[1:],
+            "images_per_s": n / median_s, "launches": launches,
+            "losses": losses,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def phase_train(seed: int, out_dir: str) -> dict:
     import torch
 
     from ct_tpu_torch.config import VOC_300, resolve_task
     from ct_tpu_torch.models.convert import load_reference_pth
     from ct_tpu_torch.models.rfbnet import build_net
-    from ct_tpu_torch.ops.ct_attention import (
-        ct_attention_cm, ct_attention_cm_bwd_flash, ct_attention_cm_stats,
-    )
-    from ct_tpu_torch.ops.pool_relu import pool2x2_relu_bwd, pool2x2_relu_fwd
     from ct_tpu_torch.ops.priors import prior_boxes
     from ct_tpu_torch.train.reweight import init_reweight
     from ct_tpu_torch.train.solver import SolverConfig, build_optimizer
@@ -746,44 +1085,146 @@ def phase_train(seed: int, out_dir: str) -> dict:
     t0 = time.perf_counter()
     init_reweight(net, Batches(), priors, task, init_iter=2)
     torch.cuda.synchronize()
-    res = {"batch": batch, "init_reweight_s": time.perf_counter() - t0}
+    res = {"init_reweight_s": time.perf_counter() - t0}
 
     # the CLI's solver defaults
     optimizer, scheduler = build_optimizer(net, task, SolverConfig())
     train_state = TrainState(net, optimizer, scheduler)
     step = make_train_step(priors)
-    counts = {"ct_attention_cm": ct_attention_cm,
-              "ct_attention_cm_stats": ct_attention_cm_stats,
-              "ct_attention_cm_bwd_flash": ct_attention_cm_bwd_flash,
-              "pool2x2_relu_fwd": pool2x2_relu_fwd,
-              "pool2x2_relu_bwd": pool2x2_relu_bwd}
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counts.values():
-        fn.launches = 0
-    times, losses = [], []
-    for i in range(1 + steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = step(train_state, on_card[2])
-        losses.append({k: float(v) for k, v in out.items()})
-        times.append(time.perf_counter() - t0)
-    launches = {name: fn.launches for name, fn in counts.items()}
-    expected = dict.fromkeys(counts, 1 + steps)
-    expected["ct_attention_cm"] = 0       # the eval kernel: no gradient path
-    if launches != expected:
-        raise AssertionError(f"launches over {1 + steps} train steps: "
-                             f"{launches}, expected {expected}")
-    if not all(math.isfinite(v) for row in losses for v in row.values()):
-        raise AssertionError(f"non-finite train losses: {losses}")
-    median_s = sorted(times[1:])[steps // 2]
-    res.update(warmup_s=times[0], step_s=times[1:],
-               images_per_s=batch / median_s, launches=launches,
-               losses=losses,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    res.update(train_steps(step, train_state, on_card[2], True, steps))
     res["profile"] = profile_step(lambda: step(train_state, on_card[2]),
                                   out_dir, "profile_train.txt")
-
     res["card_vs_cpu"] = card_vs_cpu(task, net, batches[2], priors)
+
+    # CT_ATTENTION_FLASH=0: the blockwise backward against the flash one
+    # from the same state on the same batch, then its own timed steps
+    res["blockwise_vs_flash"] = blockwise_vs_flash(net, on_card[2], priors)
+    res["blockwise"] = train_steps(step, train_state, on_card[2], False,
+                                   steps)
+    net.ct_flash = True
+    return res
+
+
+def blockwise_vs_flash(net, batch, priors) -> dict:
+    """One loss-and-gradients call with each backward from the same state
+    and batch on the card (the blockwise one on the anchors the flash one
+    mined): losses to BLOCKWISE_LOSS_RTOL, the CT head's gradients to
+    ‖Δ‖₂ ≤ BLOCKWISE_CT_GRAD_TOL·‖g‖₂, the rest to TRAIN_GRAD_TOL."""
+    from ct_tpu_torch.train.step import LOSS_KEYS, loss_and_grads
+
+    net.ct_flash = True
+    flash, mask = loss_and_grads(net, batch, priors)
+    flash_grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+    net.ct_flash = False
+    blockwise, _ = loss_and_grads(net, batch, priors, mask=mask)
+    rows = []
+    for name, p in net.named_parameters():
+        ref = flash_grads[name]
+        norm = ref.norm().item()
+        rel = (p.grad - ref).norm().item() / max(norm, TRAIN_GRAD_FLOOR)
+        ct = name.startswith(CT_PARAMS)
+        rows.append((rel, name, ct,
+                     BLOCKWISE_CT_GRAD_TOL if ct else TRAIN_GRAD_TOL))
+    rows.sort(reverse=True)
+    loss_rel = {k: abs(blockwise[k].item() - flash[k].item())
+                / abs(flash[k].item()) for k in LOSS_KEYS}
+    ct_rows = [r for r in rows if r[2]]
+    res = {"loss_rel_err": loss_rel, "loss_rtol": BLOCKWISE_LOSS_RTOL,
+           "ct_grads": {r[1]: r[0] for r in ct_rows},
+           "ct_grad_tol": BLOCKWISE_CT_GRAD_TOL,
+           "worst_other_grad": next((r[:2] for r in rows if not r[2]), None),
+           "other_grad_tol": TRAIN_GRAD_TOL}
+    if not (max(loss_rel.values()) <= BLOCKWISE_LOSS_RTOL
+            and all(r[0] <= r[3] for r in rows) and len(ct_rows) == 8):
+        raise AssertionError(f"the blockwise train step disagrees with the "
+                             f"flash one: {res}")
+    return res
+
+
+def phase_transfer(seed: int) -> dict:
+    """Phase-2 transfer (C=60 source classes) train steps at batch 64 from
+    seeded weights, with the flash and with the blockwise backward."""
+    import torch
+
+    from ct_tpu_torch.config import VOC_300, resolve_task
+    from ct_tpu_torch.models.rfbnet import build_net
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.train.solver import SolverConfig, build_optimizer
+    from ct_tpu_torch.train.step import TrainState, make_train_step
+
+    task = resolve_task(2, "transfer", "ours", "VOC")
+    dev = torch.device("cuda")
+    batch = dict(seeded_targets(seed + 50, TRAIN_BATCH),
+                 image=seeded_images(seed + 50, TRAIN_BATCH, 300))
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    torch.manual_seed(seed)
+    net = build_net(task, 300, device=dev)
+    optimizer, scheduler = build_optimizer(net, task, SolverConfig())
+    train_state = TrainState(net, optimizer, scheduler)
+    step = make_train_step(prior_boxes(VOC_300, dev))
+    res = {"classes": task.src_cls_dim}
+    for flash in (True, False):
+        res["flash" if flash else "blockwise"] = train_steps(
+            step, train_state, batch, flash, TRAIN_STEPS)
+    return res
+
+
+def phase_bench(out_dir: str) -> dict:
+    """The port's three kernel benches at 300 (and the backward bench at
+    512), few iterations each, their printed lines to ``out_dir``; the
+    launches of the benches' kernels over them. The backward bench's checks
+    (each backward against its plain version, the two layouts and the two
+    backwards against each other) must hold within BWD_TOL of the largest
+    gradient: at 512 they are the only card run of rows 3, 4 and 5 at
+    K=4,964 and P=32,756."""
+    import contextlib
+
+    import torch
+
+    from ct_tpu_torch.ops.bias_relu import bias_relu_bwd
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention, ct_attention_bwd, ct_attention_cm_bwd,
+        ct_attention_variant,
+    )
+    from ct_tpu_torch.scripts import (
+        bench_bias_relu_bwd, bench_ct_attention, bench_ct_bwd,
+    )
+
+    counts = {"ct_attention": ct_attention,
+              "ct_attention_bwd": ct_attention_bwd,
+              "ct_attention_variant": ct_attention_variant,
+              "ct_attention_cm_bwd": ct_attention_cm_bwd,
+              "bias_relu_bwd": bias_relu_bwd}
+    for fn in counts.values():
+        fn.launches = 0
+    benches = (("bench_ct_attention", bench_ct_attention, ["--iters", "3"]),
+               ("bench_ct_bwd", bench_ct_bwd, ["--iters", "2"]),
+               ("bench_ct_bwd_512", bench_ct_bwd, ["--size", "512",
+                                                   "--iters", "2"]),
+               ("bench_bias_relu_bwd", bench_bias_relu_bwd,
+                ["--iters", "3"]))
+    res = {}
+    os.makedirs(out_dir, exist_ok=True)
+    for name, module, argv in benches:
+        t0 = time.perf_counter()
+        with open(os.path.join(out_dir, name + ".txt"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            res[name] = module.main(argv)
+        res[name]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    res["launches"] = {name: fn.launches for name, fn in counts.items()}
+    if not all(res["launches"].values()):
+        raise AssertionError(f"a bench kernel did not run: "
+                             f"{res['launches']}")
+    for name in ("bench_ct_bwd", "bench_ct_bwd_512"):
+        rel = {f"{check}.{grad}": e["rel"]
+               for check in ("rowmajor_vs_plain", "classmajor_vs_plain",
+                             "flash_vs_plain", "rowmajor_vs_classmajor",
+                             "blockwise_vs_flash")
+               for grad, e in res[name][check].items()}
+        res[name]["worst_rel"] = max(rel.values())
+        if not res[name]["worst_rel"] <= BWD_TOL:
+            raise AssertionError(f"{name}: a backward disagrees: {rel}")
     return res
 
 
@@ -860,47 +1301,59 @@ def profile_step(fn, out_dir: str, table: str) -> dict:
 
 
 def kernels_line(results: dict) -> list:
-    """Every kernel of the eval, train and serving paths: its launches on
-    its path's phase, its error against its plain version (for NMS the
-    number of keep entries that differ), and its times at that path's
-    batch (8 for eval and serving, 64 for training)."""
+    """Every kernel of the port: its launches on its path's phase (the
+    eval, serving and train steps; the blockwise train steps; the benches),
+    its error against its plain version (for NMS the number of keep
+    entries that differ) over every case checked, and its times at that
+    path's batch (8 for eval and serving, 64 for training and the backward
+    bench, 128 for the forward bench)."""
     kern = results["kernel"]
+
+    def worst(prefix, key="max_abs_err"):
+        return max(kern[c][key] for c in kern if c.startswith(prefix))
+
     incre, timed, pool = kern["incre"], kern["train_timed"], kern["pool_timed"]
     attn_err = max(max(v for n, v in kern[c]["stats_err"].items()
                        if n != "z_rel")
-                   for c in ("train_incre", "train_transfer", "train_ragged",
-                             "train_ragged_narrow", "train_timed"))
-    bwd_err = max(kern[c]["bwd_max_abs_err"]
-                  for c in ("train_incre", "train_transfer", "train_ragged",
-                            "train_ragged_narrow", "train_timed"))
+                   for c in kern if c.startswith("train_"))
     pool_err = {d: max(kern[c][d + "_max_abs_err"]
                        for c in ("pool", "pool_ragged", "pool_timed"))
                 for d in ("fwd", "bwd")}
+    train = results["train"]["launches"]
+    blockwise = results["train"]["blockwise"]["launches"]
+    bench = results["bench"]["launches"]
+    serving = results["serving"]["launches"]
+    rowmajor = kern["rowmajor_transfer"]
+    att = "ct_tpu/ops/ct_attention.py:"
     rows = [
-        ("ct_attention_cm", "ct_attention_cm.cu",
-         "ct_tpu/ops/ct_attention.py:146", results["model"]["launches"],
-         incre["max_abs_err"], incre),
-        ("ct_attention_cm_stats", "ct_attention_cm.cu",
-         "ct_tpu/ops/ct_attention.py:209", results["train"]["launches"],
+        ("ct_attention_cm", "ct_attention_cm.cu", att + "146",
+         results["model"]["launches"], incre["max_abs_err"], incre),
+        ("ct_attention_cm_stats", "ct_attention_cm.cu", att + "209", train,
          attn_err, timed["stats"]),
-        ("ct_attention_cm_bwd_flash", "ct_attention_cm_bwd.cu",
-         "ct_tpu/ops/ct_attention.py:520", results["train"]["launches"],
-         bwd_err, timed["bwd"]),
+        ("ct_attention_cm_bwd_flash", "ct_attention_cm_bwd.cu", att + "520",
+         train, worst("train_", "bwd_max_abs_err"), timed["bwd"]),
+        ("ct_attention_cm_bwd", "ct_attention_cm_bwd.cu", att + "364",
+         blockwise, worst("blockwise_"), kern["blockwise_timed"]),
+        ("ct_attention", "ct_attention_cm.cu", att + "67", bench,
+         worst("rowmajor_", "fwd_max_abs_err"), rowmajor["fwd"]),
+        ("ct_attention_bwd", "ct_attention_cm_bwd.cu", att + "283", bench,
+         worst("rowmajor_", "bwd_max_abs_err"), rowmajor["bwd"]),
         ("pool2x2_relu_fwd", "pool2x2_relu.cu",
-         "ct_tpu/ops/pool_packed_pallas.py:56", results["train"]["launches"],
-         pool_err["fwd"], pool["fwd"]),
+         "ct_tpu/ops/pool_packed_pallas.py:56", train, pool_err["fwd"],
+         pool["fwd"]),
         ("pool2x2_relu_bwd", "pool2x2_relu.cu",
-         "ct_tpu/ops/pool_packed_pallas.py:66", results["train"]["launches"],
-         pool_err["bwd"], pool["bwd"]),
-        ("ct_attention_serving", "ct_attention_serving.cu",
-         "ct_tpu/ops/ct_attention.py:720", results["serving"]["launches"],
-         max(kern[c]["max_abs_err"] for c in
-             ("serving_incre", "serving_transfer", "serving_ragged",
-              "serving_ragged_narrow")), kern["serving_incre"]),
-        ("nms_mask", "nms.cu", "ct_tpu/ops/nms_pallas.py:35",
-         results["serving"]["launches"],
-         max(kern[c]["max_abs_err"] for c in ("nms", "nms_ties",
-                                              "nms_ragged")), kern["nms"]),
+         "ct_tpu/ops/pool_packed_pallas.py:66", train, pool_err["bwd"],
+         pool["bwd"]),
+        ("ct_attention_serving", "ct_attention_serving.cu", att + "720",
+         serving, worst("serving_"), kern["serving_incre"]),
+        ("nms_mask", "nms.cu", "ct_tpu/ops/nms_pallas.py:35", serving,
+         worst("nms"), kern["nms"]),
+        ("bias_relu_bwd", "bias_relu_bwd.cu",
+         "scripts/bench_bias_relu_bwd.py:32", bench, worst("bias_relu"),
+         kern["bias_relu_timed"]),
+        ("ct_attention_variant", "ct_attention_cm.cu",
+         "scripts/bench_ct_attention.py:36", bench, worst("variant_"),
+         kern["variant_timed"]),
     ]
     return [{"name": name, "route": "cuda",
              "source": "ct_tpu_torch/csrc/" + src, "replaces": replaces,
@@ -940,7 +1393,9 @@ def main(argv=None) -> int:
                      ("model", lambda: phase_model(args.seed, PROFILE_DIR)),
                      ("serving", lambda: phase_serving(args.seed,
                                                        PROFILE_DIR)),
-                     ("train", lambda: phase_train(args.seed, PROFILE_DIR))):
+                     ("train", lambda: phase_train(args.seed, PROFILE_DIR)),
+                     ("transfer", lambda: phase_transfer(args.seed)),
+                     ("bench", lambda: phase_bench(PROFILE_DIR))):
         t0 = time.perf_counter()
         results[name] = fn()
         emit({"phase": name, "seconds": time.perf_counter() - t0,

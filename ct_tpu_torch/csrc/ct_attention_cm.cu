@@ -1,19 +1,23 @@
-// Class-major Context-Transformer attention, forward, float32, for Hopper.
+// Context-Transformer attention, forward, float32, for Hopper.
 //
-// Replaces two Pallas TPU kernels of ct_tpu/ops/ct_attention.py: `_kernel_cm`
-// (the eval forward, reached through `ct_attention_cm`) and
-// `_kernel_cm_stats` (the training forward, reached through
-// `ct_attention_cm_stats`). For image b and anchor p:
+// Replaces four Pallas TPU kernels of ct_tpu/ops/ct_attention.py and
+// scripts/bench_ct_attention.py: `_kernel_cm` (the class-major eval forward,
+// reached through `ct_attention_cm`), `_kernel_cm_stats` (the class-major
+// training forward, reached through `ct_attention_cm_stats`), `_kernel` (the
+// row-major forward, reached through `ct_attention`) and the bench's
+// `make_variant` kernel (the row-major forward with its exponential in
+// bfloat16). For image b and anchor p:
 //
-//   s[j]       = sum_c k[b,j,c] * q[b,c,p]
-//   out[b,c,p] = base[b,c,p] + wz[c] * sum_j e^(s[j]-max s) v[b,j,c]
-//                                     / sum_j e^(s[j]-max s)
+//   s[j]     = sum_c k[b,j,c] * q[b,p,c]
+//   out[b,p] = base[b,p] + wz * sum_j e^(s[j]-max s) v[b,j,:]
+//                               / sum_j e^(s[j]-max s)
 //
-// q, base, out are [B,C,P] (anchors contiguous); k, v are [B,K,C]; wz is [C].
-// The training forward also writes what the flash backward needs:
-// delta[b,c,p] (the attention output before wz), m[b,p] = max s and
-// z[b,p] = sum_j e^(s[j]-m), f32. The online softmax below ends holding
-// exactly its final max and denominator, so these cost three stores.
+// q, base, out are class-major [B,C,P] (anchors contiguous) or row-major
+// [B,P,C]; k, v are [B,K,C]; wz is [C]. The class-major training forward
+// also writes what the flash backward needs: delta[b,c,p] (the attention
+// output before wz), m[b,p] = max s and z[b,p] = sum_j e^(s[j]-m), f32. The
+// online softmax ends holding exactly its final max and denominator, so
+// these cost three stores.
 //
 // What bounds it on the H100: arithmetic. Per (anchor, key) it does C FMAs
 // for the score, C FMAs for the weighted value sum and one exponential,
@@ -22,121 +26,64 @@
 // on the FP32 pipes, not the tensor cores.
 //
 // Design: one thread per anchor, 128 anchors per block, grid (P tiles, B).
-// Each thread keeps its query column and C accumulators in registers (C is
-// a template parameter padded to 16 or 64, so 15 source classes and 60 both
-// fit) and walks K in tiles of 64 keys staged in shared memory; all threads
-// of a warp read the same key row, a broadcast with no bank conflicts. The
-// softmax is online: a running max and denominator per anchor, and the
-// accumulators are rescaled only when the max grows, so the [K,P] affinity
-// never exists in memory. Loads and stores of q, base and out are coalesced
-// along P. Ragged P (threads past the end compute on zeros and store
-// nothing) and ragged K (the last tile is short) are masked; padded classes
-// are zero in q, k and v, so they add nothing to the scores and are never
-// stored.
+// Each thread keeps its query row and C accumulators in registers (C padded
+// to 16 or 64) and walks K in tiles of 64 keys staged in shared memory; all
+// threads of a warp read the same key row, a broadcast with no bank
+// conflicts. The softmax is online (ct_attention_common.cuh, softmax_sum),
+// so the [K,P] affinity never exists in memory. Class-major loads and
+// stores are coalesced along P; row-major ones go through shared memory
+// (load_rows, store_rows), in the key tiles' space before and after the
+// walk. Ragged P (threads past the end compute on zeros and store nothing)
+// and ragged K (the last tile is short) are masked. The bfloat16-exponent
+// variant takes two passes over K, the first for the row max, so that each
+// weight is rounded as the plain version rounds it.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "ct_attention_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // anchors per block, one per thread
-constexpr int kKeyTile = 64;   // keys staged in shared memory at a time
+using namespace ct;
 
-template <int CP, bool kStats>
+template <int CP, bool kStats, bool kRowMajor, bool kExpBf16>
 __global__ void __launch_bounds__(kThreads)
-ct_attention_cm_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ base,
-                       const float* __restrict__ wz, float* __restrict__ out,
-                       float* __restrict__ delta, float* __restrict__ m_out,
-                       float* __restrict__ z_out, int C, int P, int K) {
+ct_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ base,
+                    const float* __restrict__ wz, float* __restrict__ out,
+                    float* __restrict__ delta, float* __restrict__ m_out,
+                    float* __restrict__ z_out, int C, int P, int K) {
   static_assert(CP % 4 == 0, "padded class count must be a multiple of 4");
-  __shared__ __align__(16) float ks[kKeyTile * CP];
-  __shared__ __align__(16) float vs[kKeyTile * CP];
+  static_assert(!(kStats && kRowMajor), "statistics are class-major only");
+  // the key and value tiles; row-major rows are staged in the same space
+  __shared__ __align__(16) float smem[2 * kKeyTile * CP];
+  float* ks = smem;
+  float* vs = smem + kKeyTile * CP;
 
   const int b = blockIdx.y;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = p < P;
-  const size_t img = static_cast<size_t>(b) * C * P;
+  const int p0 = blockIdx.x * kThreads;
+  const int p = p0 + threadIdx.x;
 
   float qr[CP];
+  load_rows<CP, kRowMajor>(q, b, p0, C, P, smem, qr);
   float acc[CP];
-#pragma unroll
-  for (int c = 0; c < CP; ++c) {
-    qr[c] = (live && c < C) ? q[img + static_cast<size_t>(c) * P + p] : 0.f;
-    acc[c] = 0.f;
-  }
-  float m = -INFINITY;  // running max of the scores
-  float l = 0.f;        // running softmax denominator, relative to m
+  float m, l;
+  softmax_sum<CP, kExpBf16>(qr, k + static_cast<size_t>(b) * K * C,
+                            v + static_cast<size_t>(b) * K * C, C, K, ks, vs,
+                            acc, m, l);
 
-  const float* kb = k + static_cast<size_t>(b) * K * C;
-  const float* vb = v + static_cast<size_t>(b) * K * C;
-
-  for (int j0 = 0; j0 < K; j0 += kKeyTile) {
-    const int nk = min(kKeyTile, K - j0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < kKeyTile * CP; e += kThreads) {
-      const int j = e / CP;
-      const int c = e % CP;
-      const bool ok = j < nk && c < C;
-      const size_t g = static_cast<size_t>(j0 + j) * C + c;
-      ks[e] = ok ? kb[g] : 0.f;
-      vs[e] = ok ? vb[g] : 0.f;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < nk; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * CP);
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-      for (int c4 = 0; c4 < CP / 4; ++c4) {
-        const float4 kk = kr[c4];
-        s0 = fmaf(kk.x, qr[4 * c4 + 0], s0);
-        s1 = fmaf(kk.y, qr[4 * c4 + 1], s1);
-        s2 = fmaf(kk.z, qr[4 * c4 + 2], s2);
-        s3 = fmaf(kk.w, qr[4 * c4 + 3], s3);
-      }
-      const float s = (s0 + s1) + (s2 + s3);
-      if (s > m) {
-        const float corr = expf(m - s);  // 0 on the first key
-        l *= corr;
-#pragma unroll
-        for (int c = 0; c < CP; ++c) acc[c] *= corr;
-        m = s;
-      }
-      const float w = expf(s - m);
-      l += w;
-      const float4* vr = reinterpret_cast<const float4*>(vs + j * CP);
-#pragma unroll
-      for (int c4 = 0; c4 < CP / 4; ++c4) {
-        const float4 vv = vr[c4];
-        acc[4 * c4 + 0] = fmaf(w, vv.x, acc[4 * c4 + 0]);
-        acc[4 * c4 + 1] = fmaf(w, vv.y, acc[4 * c4 + 1]);
-        acc[4 * c4 + 2] = fmaf(w, vv.z, acc[4 * c4 + 2]);
-        acc[4 * c4 + 3] = fmaf(w, vv.w, acc[4 * c4 + 3]);
-      }
-    }
-  }
-
-  if (!live) return;
   const float inv = 1.f / l;
 #pragma unroll
-  for (int c = 0; c < CP; ++c) {
-    if (c < C) {
-      const size_t o = img + static_cast<size_t>(c) * P + p;
-      const float d = acc[c] * inv;
-      out[o] = base[o] + wz[c] * d;
-      if (kStats) delta[o] = d;
-    }
-  }
-  if (kStats) {
+  for (int c = 0; c < CP; ++c) acc[c] *= inv;
+  store_rows<CP, kRowMajor>(out, base, wz, b, p0, C, P, smem, acc);
+  if (kStats && p < P) {
+    store_rows<CP, false>(delta, nullptr, nullptr, b, p0, C, P, smem, acc);
     const size_t s_at = static_cast<size_t>(b) * P + p;
     m_out[s_at] = m;
     z_out[s_at] = l;
   }
 }
 
-template <bool kStats>
+template <bool kStats, bool kRowMajor, bool kExpBf16>
 int launch(const void* q, const void* k, const void* v, const void* base,
            const void* wz, void* out, void* delta, void* m, void* z, int B,
            int C, int P, int K, void* stream) {
@@ -155,11 +102,13 @@ int launch(const void* q, const void* k, const void* v, const void* base,
   float* mf = static_cast<float*>(m);
   float* zf = static_cast<float*>(z);
   if (C <= 16) {
-    ct_attention_cm_kernel<16, kStats><<<grid, kThreads, 0, st>>>(
-        qf, kf, vf, bf, wf, of, df, mf, zf, C, P, K);
+    ct_attention_kernel<16, kStats, kRowMajor, kExpBf16>
+        <<<grid, kThreads, 0, st>>>(qf, kf, vf, bf, wf, of, df, mf, zf, C, P,
+                                    K);
   } else {
-    ct_attention_cm_kernel<64, kStats><<<grid, kThreads, 0, st>>>(
-        qf, kf, vf, bf, wf, of, df, mf, zf, C, P, K);
+    ct_attention_kernel<64, kStats, kRowMajor, kExpBf16>
+        <<<grid, kThreads, 0, st>>>(qf, kf, vf, bf, wf, of, df, mf, zf, C, P,
+                                    K);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -170,22 +119,40 @@ int launch(const void* q, const void* k, const void* v, const void* base,
 // contiguous float32 tensors; `stream` is a cudaStream_t. Each returns the
 // launch status (cudaGetLastError), 0 on success.
 
-// Eval forward: out only.
+// Class-major eval forward: out only.
 extern "C" int ct_attention_cm_f32(const void* q, const void* k,
                                    const void* v, const void* base,
                                    const void* wz, void* out, int B, int C,
                                    int P, int K, void* stream) {
-  return launch<false>(q, k, v, base, wz, out, nullptr, nullptr, nullptr, B,
-                       C, P, K, stream);
+  return launch<false, false, false>(q, k, v, base, wz, out, nullptr, nullptr,
+                                     nullptr, B, C, P, K, stream);
 }
 
-// Training forward: out and delta [B,C,P], m and z [B,1,P].
+// Class-major training forward: out and delta [B,C,P], m and z [B,1,P].
 extern "C" int ct_attention_cm_stats_f32(const void* q, const void* k,
                                          const void* v, const void* base,
                                          const void* wz, void* out,
                                          void* delta, void* m, void* z,
                                          int B, int C, int P, int K,
                                          void* stream) {
-  return launch<true>(q, k, v, base, wz, out, delta, m, z, B, C, P, K,
-                      stream);
+  return launch<true, false, false>(q, k, v, base, wz, out, delta, m, z, B, C,
+                                    P, K, stream);
+}
+
+// Row-major forward: q, base, out [B,P,C].
+extern "C" int ct_attention_f32(const void* q, const void* k, const void* v,
+                                const void* base, const void* wz, void* out,
+                                int B, int C, int P, int K, void* stream) {
+  return launch<false, true, false>(q, k, v, base, wz, out, nullptr, nullptr,
+                                    nullptr, B, C, P, K, stream);
+}
+
+// Row-major forward with the exponential rounded as a bfloat16 one: the
+// attention bench's variant (its float32 variant is ct_attention_f32).
+extern "C" int ct_attention_variant_f32(const void* q, const void* k,
+                                        const void* v, const void* base,
+                                        const void* wz, void* out, int B,
+                                        int C, int P, int K, void* stream) {
+  return launch<false, true, true>(q, k, v, base, wz, out, nullptr, nullptr,
+                                   nullptr, B, C, P, K, stream);
 }

@@ -1,69 +1,147 @@
-// Class-major Context-Transformer attention, flash backward, float32, for
-// Hopper.
+// Context-Transformer attention, backward, float32, for Hopper.
 //
-// Replaces the Pallas TPU kernel `_bwd_kernel_cm_flash`
-// (ct_tpu/ops/ct_attention.py, reached through `_bwd_call_cm_flash`, the
-// backward rule of `ct_attention_cm`). For out = base + wz * delta with
-// delta = softmax_K(k^T q) v, the forward saved the per-anchor row max m and
-// denominator z, and the caller computed colsum[b,p] = sum_c g*delta*wz. Per
-// image b, anchor p and key j:
+// Replaces four Pallas TPU kernels of ct_tpu/ops/ct_attention.py:
+//  * `_bwd_kernel_cm_flash` (reached through `_bwd_call_cm_flash`): the
+//    flash backward, from the statistics the training forward saved;
+//  * `_bwd_kernel_cm` (reached through `_bwd_call_cm`, with
+//    CT_ATTENTION_FLASH=0, and `ct_attention_bwd_pallas`): the blockwise
+//    backward, from q, k, v, wz and g alone;
+//  * `_bwd_kernel` (the row-major blockwise backward of `ct_attention`,
+//    reached through `pl.pallas_call` in scripts/bench_ct_bwd.py): the same
+//    with q, g and dq row-major.
+// For out = base + wz * delta with delta = softmax_K(k^T q) v, per image b,
+// anchor p and key j:
 //
-//   attn  = e^(s - m[p]) / z[p],       s = sum_c k[j,c] q[c,p]
-//   dattn = sum_c v[j,c] g[c,p] wz[c]
-//   ds    = attn * (dattn - colsum[p])
+//   attn   = e^(s - m[p]) / z[p],   s = sum_c k[j,c] q[c,p],  m = max_j s
+//   dattn  = sum_c v[j,c] g[c,p] wz[c]
+//   colsum = sum_c g[c,p] wz[c] delta[c,p]  (= sum_j attn dattn)
+//   ds     = attn * (dattn - colsum)
 //   dq[c,p] += ds k[j,c];  dk[j,c] += ds q[c,p];  dv[j,c] += attn g[c,p] wz[c]
+//   dwz[c]  = sum_{b,p} g[c,p] delta[c,p]
 //
-// q, g, dq are [B,C,P] (anchors contiguous); k, v, dk, dv are [B,K,C]; wz is
-// [C]; m, z, colsum are [B,1,P].
+// q, g, dq are class-major [B,C,P] or row-major [B,P,C]; k, v, dk, dv are
+// [B,K,C]; wz, dwz are [C]; m, z, colsum are [B,P].
 //
-// What bounds it on the H100: arithmetic, 10*B*P*K*C flops (scores, dattn,
-// dq, dk, dv), against q, g, dq and the small k/v/dk/dv moved once.
+// What bounds it on the H100: arithmetic, 10*B*P*K*C flops for the flash
+// backward (scores, dattn, dq, dk, dv) and 12*B*P*K*C for the blockwise one
+// (which also recomputes the scores' softmax and delta), against q, g, dq
+// and the small k/v/dk/dv moved once.
 //
-// Design: two kernels, both on the FP32 pipes, with no float atomics, so the
-// result does not depend on the order blocks run in.
-//  1. dq: one thread per anchor, 128 anchors per block, grid (P tiles, B),
-//     as in the forward. A thread keeps q, g*wz and its dq accumulators in
-//     registers and walks the keys in tiles of 64 staged in shared memory
-//     (warp-wide broadcast reads).
+// Design: all on the FP32 pipes, with no float atomics, so the result does
+// not depend on the order blocks run in.
+//  0. (blockwise only) stats: one thread per anchor, as the forward
+//     (softmax_sum), recomputes m, z and delta, then writes m, z and
+//     colsum, and each block's partial sum of g*delta over its 128 anchors
+//     (warp shuffles, then the four warps in order); dwz_reduce sums the
+//     partials of every block in a fixed order, one block per class.
+//  1. dq: one thread per anchor, 128 anchors per block, grid (P tiles, B).
+//     A thread keeps q, g*wz and its dq accumulators in registers and walks
+//     the keys in tiles of 64 staged in shared memory (warp-wide broadcast
+//     reads).
 //  2. dk, dv: one thread per key, 128 keys per block, grid (K tiles, B). A
 //     thread keeps its k and v rows and its dk and dv accumulators in
 //     registers and walks the anchors in tiles of 64, with q, g*wz, m, 1/z
 //     and colsum of the tile staged in shared memory.
 // Each kernel computes the scores and the exponential again, so the
-// exponential runs twice per (anchor, key); both kernels sum the score in
-// the forward's order, so they see the forward's s exactly. C is a template
-// parameter padded to 16 or 64 (15 source classes and 60 both fit); padded
-// classes are zero and never stored. Ragged P and K are masked: a thread
-// past the end computes on zeros (its m and 1/z are 0, so attn is 0) and
-// stores nothing, and the last tile of keys or anchors is short.
+// exponential runs twice per (anchor, key) in the flash backward and three
+// times in the blockwise one; every kernel sums a score in the forward's
+// order (dot_row), so all see the same s. Ragged P and K are masked: a
+// thread past the end computes on zeros (its m and 1/z are 0, so attn is 0)
+// and stores nothing, and the last tile of keys or anchors is short.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "ct_attention_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;    // anchors (dq) or keys (dk, dv) per block
-constexpr int kKeyTile = 64;     // keys staged in shared memory at a time
-constexpr int kAnchorTile = 64;  // anchors staged in shared memory at a time
+using namespace ct;
 
-// sum_c row[c] * x[c] over a shared-memory row, in the forward's order.
-template <int CP>
-__device__ __forceinline__ float dot_row(const float* row,
-                                         const float (&x)[CP]) {
-  const float4* r = reinterpret_cast<const float4*>(row);
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+template <int CP, bool kRowMajor>
+__global__ void __launch_bounds__(kThreads)
+bwd_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ wz,
+                 const float* __restrict__ g, float* __restrict__ m_out,
+                 float* __restrict__ z_out, float* __restrict__ colsum_out,
+                 float* __restrict__ dwz_part, int C, int P, int K) {
+  static_assert(CP % 4 == 0, "padded class count must be a multiple of 4");
+  __shared__ __align__(16) float smem[2 * kKeyTile * CP];
+  float* ks = smem;
+  float* vs = smem + kKeyTile * CP;
+
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kThreads;
+  const int p = p0 + threadIdx.x;
+
+  float qr[CP];
+  float gr[CP];
+  load_rows<CP, kRowMajor>(q, b, p0, C, P, smem, qr);
+  load_rows<CP, kRowMajor>(g, b, p0, C, P, smem, gr);
+  float acc[CP];
+  float m, l;
+  softmax_sum<CP, false>(qr, k + static_cast<size_t>(b) * K * C,
+                         v + static_cast<size_t>(b) * K * C, C, K, ks, vs,
+                         acc, m, l);
+
+  // delta = acc / l; a thread past P holds g = 0, so it adds nothing
+  const float inv = 1.f / l;
+  float cs = 0.f;
 #pragma unroll
-  for (int c4 = 0; c4 < CP / 4; ++c4) {
-    const float4 rr = r[c4];
-    s0 = fmaf(rr.x, x[4 * c4 + 0], s0);
-    s1 = fmaf(rr.y, x[4 * c4 + 1], s1);
-    s2 = fmaf(rr.z, x[4 * c4 + 2], s2);
-    s3 = fmaf(rr.w, x[4 * c4 + 3], s3);
+  for (int c = 0; c < CP; ++c) {
+    acc[c] = gr[c] * (acc[c] * inv);  // g * delta
+    if (c < C) cs = fmaf(acc[c], wz[c], cs);
   }
-  return (s0 + s1) + (s2 + s3);
+  if (p < P) {
+    const size_t at = static_cast<size_t>(b) * P + p;
+    m_out[at] = m;
+    z_out[at] = l;
+    colsum_out[at] = cs;
+  }
+
+  // this block's sum of g * delta over its anchors, per class
+  float* red = smem;  // [kThreads / 32][CP]
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  __syncthreads();  // the key tiles are no longer read
+#pragma unroll
+  for (int c = 0; c < CP; ++c) {
+    float x = acc[c];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    }
+    if (lane == 0) red[warp * CP + c] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < C) {
+    float s = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) s += red[w * CP + threadIdx.x];
+    dwz_part[(static_cast<size_t>(b) * gridDim.x + blockIdx.x) * C +
+             threadIdx.x] = s;
+  }
 }
 
-template <int CP>
+constexpr int kReduceThreads = 256;
+
+// dwz[c] = sum over the n partial rows of part[:, c], in a fixed order: one
+// block per class, a strided sum per thread, then a tree in shared memory.
+__global__ void __launch_bounds__(kReduceThreads)
+dwz_reduce_kernel(const float* __restrict__ part, float* __restrict__ dwz,
+                  int n, int C) {
+  __shared__ float red[kReduceThreads];
+  const int c = blockIdx.x;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += kReduceThreads) {
+    s += part[static_cast<size_t>(i) * C + c];
+  }
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = kReduceThreads / 2; w > 0; w /= 2) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) dwz[c] = red[0];
+}
+
+template <int CP, bool kRowMajor>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ wz,
@@ -71,24 +149,24 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ z, const float* __restrict__ colsum,
               float* __restrict__ dq, int C, int P, int K) {
   static_assert(CP % 4 == 0, "padded class count must be a multiple of 4");
-  __shared__ __align__(16) float ks[kKeyTile * CP];
-  __shared__ __align__(16) float vs[kKeyTile * CP];
+  __shared__ __align__(16) float smem[2 * kKeyTile * CP];
+  float* ks = smem;
+  float* vs = smem + kKeyTile * CP;
 
   const int b = blockIdx.y;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
+  const int p0 = blockIdx.x * kThreads;
+  const int p = p0 + threadIdx.x;
   const bool live = p < P;
-  const size_t img = static_cast<size_t>(b) * C * P;
   const size_t row = static_cast<size_t>(b) * P + p;
 
   float qr[CP];
   float gw[CP];
   float acc[CP];
+  load_rows<CP, kRowMajor>(q, b, p0, C, P, smem, qr);
+  load_rows<CP, kRowMajor>(g, b, p0, C, P, smem, gw);
 #pragma unroll
   for (int c = 0; c < CP; ++c) {
-    const bool ok = live && c < C;
-    const size_t o = img + static_cast<size_t>(c) * P + p;
-    qr[c] = ok ? q[o] : 0.f;
-    gw[c] = ok ? g[o] * wz[c] : 0.f;
+    gw[c] = c < C ? gw[c] * wz[c] : 0.f;
     acc[c] = 0.f;
   }
   const float mp = live ? m[row] : 0.f;
@@ -101,40 +179,20 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j0 = 0; j0 < K; j0 += kKeyTile) {
     const int nk = min(kKeyTile, K - j0);
     __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < kKeyTile * CP; e += kThreads) {
-      const int j = e / CP;
-      const int c = e % CP;
-      const bool ok = j < nk && c < C;
-      const size_t gi = static_cast<size_t>(j0 + j) * C + c;
-      ks[e] = ok ? kb[gi] : 0.f;
-      vs[e] = ok ? vb[gi] : 0.f;
-    }
+    stage_keys<CP>(ks, vs, kb, vb, j0, nk, C);
     __syncthreads();
 
     for (int j = 0; j < nk; ++j) {
       const float s = dot_row<CP>(ks + j * CP, qr);
       const float attn = expf(s - mp) * iz;
       const float ds = attn * (dot_row<CP>(vs + j * CP, gw) - cs);
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * CP);
-#pragma unroll
-      for (int c4 = 0; c4 < CP / 4; ++c4) {
-        const float4 kk = kr[c4];
-        acc[4 * c4 + 0] = fmaf(ds, kk.x, acc[4 * c4 + 0]);
-        acc[4 * c4 + 1] = fmaf(ds, kk.y, acc[4 * c4 + 1]);
-        acc[4 * c4 + 2] = fmaf(ds, kk.z, acc[4 * c4 + 2]);
-        acc[4 * c4 + 3] = fmaf(ds, kk.w, acc[4 * c4 + 3]);
-      }
+      axpy_row<CP>(ds, ks + j * CP, acc);
     }
   }
-
-  if (!live) return;
-#pragma unroll
-  for (int c = 0; c < CP; ++c) {
-    if (c < C) dq[img + static_cast<size_t>(c) * P + p] = acc[c];
-  }
+  store_rows<CP, kRowMajor>(dq, nullptr, nullptr, b, p0, C, P, smem, acc);
 }
 
-template <int CP>
+template <int CP, bool kRowMajor>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ wz,
@@ -152,7 +210,6 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.y;
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const bool live = j < K;
-  const size_t img = static_cast<size_t>(b) * C * P;
   const size_t key = (static_cast<size_t>(b) * K + j) * C;
 
   float kr[CP];
@@ -171,12 +228,21 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int p0 = 0; p0 < P; p0 += kAnchorTile) {
     const int np = min(kAnchorTile, P - p0);
     __syncthreads();  // the previous tile is no longer read
-    // element e = (c, a): consecutive threads read consecutive anchors
     for (int e = threadIdx.x; e < kAnchorTile * CP; e += kThreads) {
-      const int c = e / kAnchorTile;
-      const int a = e % kAnchorTile;
+      int a, c;
+      size_t o;
+      if (kRowMajor) {
+        // element e = (a, c): consecutive threads read consecutive classes
+        a = e / CP;
+        c = e % CP;
+        o = (static_cast<size_t>(b) * P + p0 + a) * C + c;
+      } else {
+        // element e = (c, a): consecutive threads read consecutive anchors
+        c = e / kAnchorTile;
+        a = e % kAnchorTile;
+        o = (static_cast<size_t>(b) * C + c) * P + p0 + a;
+      }
       const bool ok = a < np && c < C;
-      const size_t o = img + static_cast<size_t>(c) * P + p0 + a;
       qs[a * CP + c] = ok ? q[o] : 0.f;
       gs[a * CP + c] = ok ? g[o] * wz[c] : 0.f;
     }
@@ -193,21 +259,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float s = dot_row<CP>(qs + a * CP, kr);
       const float attn = expf(s - ms[a]) * izs[a];
       const float ds = attn * (dot_row<CP>(gs + a * CP, vr) - css[a]);
-      const float4* qa = reinterpret_cast<const float4*>(qs + a * CP);
-      const float4* ga = reinterpret_cast<const float4*>(gs + a * CP);
-#pragma unroll
-      for (int c4 = 0; c4 < CP / 4; ++c4) {
-        const float4 qq = qa[c4];
-        const float4 gg = ga[c4];
-        dkr[4 * c4 + 0] = fmaf(ds, qq.x, dkr[4 * c4 + 0]);
-        dkr[4 * c4 + 1] = fmaf(ds, qq.y, dkr[4 * c4 + 1]);
-        dkr[4 * c4 + 2] = fmaf(ds, qq.z, dkr[4 * c4 + 2]);
-        dkr[4 * c4 + 3] = fmaf(ds, qq.w, dkr[4 * c4 + 3]);
-        dvr[4 * c4 + 0] = fmaf(attn, gg.x, dvr[4 * c4 + 0]);
-        dvr[4 * c4 + 1] = fmaf(attn, gg.y, dvr[4 * c4 + 1]);
-        dvr[4 * c4 + 2] = fmaf(attn, gg.z, dvr[4 * c4 + 2]);
-        dvr[4 * c4 + 3] = fmaf(attn, gg.w, dvr[4 * c4 + 3]);
-      }
+      axpy_row<CP>(ds, qs + a * CP, dkr);
+      axpy_row<CP>(attn, gs + a * CP, dvr);
     }
   }
 
@@ -221,41 +274,104 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int CP>
-int launch(const float* q, const float* k, const float* v, const float* wz,
-           const float* g, const float* m, const float* z,
-           const float* colsum, float* dq, float* dk, float* dv, int B, int C,
-           int P, int K, cudaStream_t st) {
-  bwd_dq_kernel<CP><<<dim3((P + kThreads - 1) / kThreads, B), kThreads, 0,
-                      st>>>(q, k, v, wz, g, m, z, colsum, dq, C, P, K);
+template <int CP, bool kRowMajor>
+int launch_grads(const float* q, const float* k, const float* v,
+                 const float* wz, const float* g, const float* m,
+                 const float* z, const float* colsum, float* dq, float* dk,
+                 float* dv, int B, int C, int P, int K, cudaStream_t st) {
+  bwd_dq_kernel<CP, kRowMajor>
+      <<<dim3((P + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
+          q, k, v, wz, g, m, z, colsum, dq, C, P, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv_kernel<CP><<<dim3((K + kThreads - 1) / kThreads, B), kThreads, 0,
-                        st>>>(q, k, v, wz, g, m, z, colsum, dk, dv, C, P, K);
+  bwd_dkdv_kernel<CP, kRowMajor>
+      <<<dim3((K + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
+          q, k, v, wz, g, m, z, colsum, dk, dv, C, P, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int CP, bool kRowMajor>
+int launch_blockwise(const float* q, const float* k, const float* v,
+                     const float* wz, const float* g, float* dq, float* dk,
+                     float* dv, float* dwz, float* m, float* z, float* colsum,
+                     float* part, int B, int C, int P, int K,
+                     cudaStream_t st) {
+  const int tiles = (P + kThreads - 1) / kThreads;
+  bwd_stats_kernel<CP, kRowMajor><<<dim3(tiles, B), kThreads, 0, st>>>(
+      q, k, v, wz, g, m, z, colsum, part, C, P, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dwz_reduce_kernel<<<C, kReduceThreads, 0, st>>>(part, dwz, B * tiles, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_grads<CP, kRowMajor>(q, k, v, wz, g, m, z, colsum, dq, dk, dv,
+                                     B, C, P, K, st);
+}
+
+bool bad_shape(int B, int C, int P, int K) {
+  return B <= 0 || C <= 0 || C > 64 || P <= 0 || K <= 0 || B > 65535;
+}
+
+const float* ro(const void* p) { return static_cast<const float*>(p); }
+float* rw(void* p) { return static_cast<float*>(p); }
+
+template <bool kRowMajor>
+int blockwise(const void* q, const void* k, const void* v, const void* wz,
+              const void* g, void* dq, void* dk, void* dv, void* dwz,
+              void* m, void* z, void* colsum, void* part, int B, int C,
+              int P, int K, void* stream) {
+  if (bad_shape(B, C, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C <= 16) {
+    return launch_blockwise<16, kRowMajor>(
+        ro(q), ro(k), ro(v), ro(wz), ro(g), rw(dq), rw(dk), rw(dv), rw(dwz),
+        rw(m), rw(z), rw(colsum), rw(part), B, C, P, K, st);
+  }
+  return launch_blockwise<64, kRowMajor>(
+      ro(q), ro(k), ro(v), ro(wz), ro(g), rw(dq), rw(dk), rw(dv), rw(dwz),
+      rw(m), rw(z), rw(colsum), rw(part), B, C, P, K, st);
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. Pointers are device pointers of contiguous
-// float32 tensors; `stream` is a cudaStream_t. Launches both kernels on it
-// and returns the first launch error (cudaGetLastError), 0 on success.
+// Plain C entry points for ctypes. Pointers are device pointers of
+// contiguous float32 tensors; `stream` is a cudaStream_t. Each launches its
+// kernels on it and returns the first launch error (cudaGetLastError), 0 on
+// success.
+
+// Flash backward, class-major, from the saved m, z [B,1,P] and the
+// caller's colsum [B,1,P] → dq, dk, dv.
 extern "C" int ct_attention_cm_bwd_flash_f32(
     const void* q, const void* k, const void* v, const void* wz,
     const void* g, const void* m, const void* z, const void* colsum,
     void* dq, void* dk, void* dv, int B, int C, int P, int K, void* stream) {
-  if (B <= 0 || C <= 0 || C > 64 || P <= 0 || K <= 0 || B > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_shape(B, C, P, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  float* dqf = static_cast<float*>(dq);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
   if (C <= 16) {
-    return launch<16>(f(q), f(k), f(v), f(wz), f(g), f(m), f(z), f(colsum),
-                      dqf, dkf, dvf, B, C, P, K, st);
+    return launch_grads<16, false>(ro(q), ro(k), ro(v), ro(wz), ro(g), ro(m),
+                                   ro(z), ro(colsum), rw(dq), rw(dk), rw(dv),
+                                   B, C, P, K, st);
   }
-  return launch<64>(f(q), f(k), f(v), f(wz), f(g), f(m), f(z), f(colsum),
-                    dqf, dkf, dvf, B, C, P, K, st);
+  return launch_grads<64, false>(ro(q), ro(k), ro(v), ro(wz), ro(g), ro(m),
+                                 ro(z), ro(colsum), rw(dq), rw(dk), rw(dv), B,
+                                 C, P, K, st);
+}
+
+// Blockwise backward, class-major q, g, dq [B,C,P] → dq, dk, dv, dwz. The
+// caller's scratch: m, z, colsum [B,P] and part [B, ceil(P/128), C].
+extern "C" int ct_attention_cm_bwd_f32(
+    const void* q, const void* k, const void* v, const void* wz,
+    const void* g, void* dq, void* dk, void* dv, void* dwz, void* m, void* z,
+    void* colsum, void* part, int B, int C, int P, int K, void* stream) {
+  return blockwise<false>(q, k, v, wz, g, dq, dk, dv, dwz, m, z, colsum, part,
+                          B, C, P, K, stream);
+}
+
+// Blockwise backward, row-major q, g, dq [B,P,C]; otherwise as above.
+extern "C" int ct_attention_bwd_f32(
+    const void* q, const void* k, const void* v, const void* wz,
+    const void* g, void* dq, void* dk, void* dv, void* dwz, void* m, void* z,
+    void* colsum, void* part, int B, int C, int P, int K, void* stream) {
+  return blockwise<true>(q, k, v, wz, g, dq, dk, dv, dwz, m, z, colsum, part,
+                         B, C, P, K, stream);
 }

@@ -3,9 +3,9 @@
 Each source under ``csrc/`` holds one or more kernels behind plain C entry
 points. On first use a source is compiled with ``nvcc`` for ``sm_90a`` into
 a shared library under ``build/ct_tpu_torch/`` at the repository root and
-loaded with ``ctypes``; a library newer than its source is reused. Nothing
-is built or loaded at import, so the module imports on a host without
-``nvcc``.
+loaded with ``ctypes``; a library newer than its source and the headers
+beside it is reused. Nothing is built or loaded at import, so the module
+imports on a host without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -43,6 +43,16 @@ SIGNATURES = {
     "ct_attention_cm_bwd_flash": ("ct_attention_cm_bwd",
                                   "ct_attention_cm_bwd_flash_f32",
                                   (_P,) * 11 + (_I,) * 4 + (_P,)),
+    "ct_attention_cm_bwd": ("ct_attention_cm_bwd", "ct_attention_cm_bwd_f32",
+                            (_P,) * 13 + (_I,) * 4 + (_P,)),
+    "ct_attention": ("ct_attention_cm", "ct_attention_f32",
+                     (_P,) * 6 + (_I,) * 4 + (_P,)),
+    "ct_attention_bwd": ("ct_attention_cm_bwd", "ct_attention_bwd_f32",
+                         (_P,) * 13 + (_I,) * 4 + (_P,)),
+    "ct_attention_variant": ("ct_attention_cm", "ct_attention_variant_f32",
+                             (_P,) * 6 + (_I,) * 4 + (_P,)),
+    "bias_relu_bwd": ("bias_relu_bwd", "bias_relu_bwd_f32",
+                      (_P,) * 5 + (_I,) * 3 + (_P,)),
     "pool2x2_relu_fwd": ("pool2x2_relu", "pool2x2_relu_fwd_f32",
                          (_P, _P, _L, _I, _I, _P)),
     "pool2x2_relu_bwd": ("pool2x2_relu", "pool2x2_relu_bwd_f32",
@@ -64,14 +74,16 @@ def nvcc() -> str:
 
 
 def build(name: str) -> dict:
-    """Compile source ``csrc/<name>.cu`` unless an up-to-date library exists.
+    """Compile source ``csrc/<name>.cu`` unless a library newer than it and
+    than every header of ``csrc/`` exists.
 
     Returns {"library", "seconds", "built", "log"}; ``log`` holds what
     ``-Xptxas -v`` printed (registers, shared memory, spills).
     """
     src = CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return {"library": str(lib), "seconds": 0.0, "built": False, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build to a temporary name, then rename: a concurrent loader never

@@ -16,7 +16,10 @@ The forward returns raw logits for every head (softmax lives in
 ``eval_scores``); predictions are [B, P, 4] / [B, P, C] with anchors
 ordered row-major over (row, col, anchor) per source map, as in the JAX
 package. The CT head runs class-major ([B, C, P]) around
-``ct_attention_cm``, whose public layout that is.
+``ct_attention_cm``, whose public layout that is; ``ct_flash`` picks its
+backward in training: the flash kernel (the default) or, with
+``ct_flash=False`` (the reference's ``CT_ATTENTION_FLASH=0``), the
+blockwise one.
 
 With ``fold_bn`` (the serving path, ``models/fold_bn.py``) every
 ``BasicConv`` is a biased conv without BN, and a model with a CT head runs
@@ -196,11 +199,12 @@ class RFBNet(nn.Module):
     """The detector. Input NCHW float images (BGR, mean-subtracted)."""
 
     def __init__(self, task: TaskSpec, size: int = 300,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, ct_flash: bool = True):
         super().__init__()
         self.task = task
         self.size = size
         self.fold_bn = fold_bn
+        self.ct_flash = ct_flash
         src_c = task.src_cls_dim
 
         layers: List[nn.Module] = []
@@ -325,7 +329,8 @@ class RFBNet(nn.Module):
         v = (self.g(keys) + keys).contiguous()             # [B, K, C]
         q_cm = (torch.einsum("oc,bcp->bop", self.theta.weight, conf_cm)
                 + self.theta.bias[None, :, None] + conf_cm).contiguous()
-        novel = ct_attention_cm(q_cm, k, v, conf_cm.contiguous(), self.Wz)
+        novel = ct_attention_cm(q_cm, k, v, conf_cm.contiguous(), self.Wz,
+                                flash=self.ct_flash)
         novel = novel / torch.sqrt(
             torch.sum(novel * novel, dim=1, keepdim=True))
         novel = torch.einsum("nc,bcp->bnp", self.OBJ_Target.weight,
@@ -358,14 +363,17 @@ class RFBNet(nn.Module):
 
 
 def build_net(task: TaskSpec, size: int = 300, device="cuda",
-              fold_bn: bool = False) -> RFBNet:
+              fold_bn: bool = False, ct_flash: bool = True) -> RFBNet:
     """The detector for ``task`` at ``size`` (300, 512, or the size-64
     test model), in eval mode on ``device`` (``.train()`` for training);
-    ``fold_bn`` builds the serving model, whose weights come folded."""
+    ``fold_bn`` builds the serving model, whose weights come folded, and
+    ``ct_flash=False`` trains the CT attention with its blockwise
+    backward."""
     if size not in (64, 300, 512):
         raise ValueError("Only RFBNet300 and RFBNet512 are supported "
                          "(plus the size-64 test variant).")
-    return RFBNet(task, size, fold_bn).to(resolve_device(device)).eval()
+    return RFBNet(task, size, fold_bn, ct_flash).to(
+        resolve_device(device)).eval()
 
 
 def eval_scores(preds: Predictions) -> Tuple[torch.Tensor, torch.Tensor]:

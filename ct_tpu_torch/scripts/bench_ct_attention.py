@@ -1,0 +1,121 @@
+"""CT attention forward bench: the row-major kernel and its variants.
+
+The port of ``scripts/bench_ct_attention.py``:
+
+    python -m ct_tpu_torch.scripts.bench_ct_attention [--device cuda|cpu]
+        [--iters N] [--batch B] [--anchors P] [--keys K] [--classes C]
+
+At B=128, P=11,620, K=1,858, C=60 (the defaults) it times the plain
+version, the production row-major forward (``ct_attention``) and the
+variants of ``make_variant``, each in ms and TFLOP/s (4·B·P·K·C flops)
+with its max |Δ| against the production kernel. Of the JAX bench's 12
+variants (exponential in float32 or bfloat16, the denominator fused or
+not, block_q 512, 1024, 2048) only the exponential's type changes what the
+CUDA kernel computes, so it times the two: each line names the six
+variants it stands for. Inputs
+are seeded normal × 0.3 in float32 (the JAX bench's are bfloat16; the
+port's kernels take float32). Run it with nothing else on the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from ct_tpu_torch import resolve_device
+from ct_tpu_torch.ops.ct_attention import (
+    ct_attention, ct_attention_reference, ct_attention_variant,
+)
+from ct_tpu_torch.scripts import device_name
+from ct_tpu_torch.utils.timing import time_calls
+
+
+FUSE_DENOM = (False, True)
+BLOCK_Q = (512, 1024, 2048)
+
+
+def make_variant(exp_dtype, block_q, fuse_denom=False):
+    """The row-major forward with its exponential in ``exp_dtype``:
+    ``ct_attention`` for torch.float32, ``ct_attention_variant`` (the same
+    kernel with its bfloat16 flag) for torch.bfloat16.
+
+    ``block_q`` (the TPU kernel's query block) has no counterpart in the
+    CUDA kernel, whose block is its 128 threads, and ``fuse_denom`` (the
+    denominator from a ones column of v, one MXU product on the TPU)
+    computes the same float32 sums either way here: both are accepted, kept
+    on the returned function and change nothing."""
+    if exp_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"make_variant: exp_dtype {exp_dtype}")
+    kernel = (ct_attention_variant if exp_dtype == torch.bfloat16
+              else ct_attention)
+
+    def fwd(q, k, v, base, wz):
+        return kernel(q, k, v, base, wz)
+
+    fwd.exp_dtype, fwd.block_q = exp_dtype, block_q
+    fwd.fuse_denom = fuse_denom
+    return fwd
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--anchors", type=int, default=11620)
+    ap.add_argument("--keys", type=int, default=1858)
+    ap.add_argument("--classes", type=int, default=60)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Run the bench; returns its numbers (ms, TFLOP/s, max |Δ|)."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    print("device", device_name(device), flush=True)
+    rng = np.random.default_rng(0)
+    b, p, kk, c = args.batch, args.anchors, args.keys, args.classes
+
+    def mk(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, np.float32) * 0.3).to(device)
+
+    q, k, v, base = mk(b, p, c), mk(b, kk, c), mk(b, kk, c), mk(b, p, c)
+    wz = torch.from_numpy(rng.standard_normal(c, np.float32)).to(device)
+    inputs = (q, k, v, base, wz)
+    flops = 4 * b * p * kk * c
+    res = {"batch": b, "anchors": p, "keys": kk, "classes": c,
+           "device": device_name(device), "variants": []}
+
+    with torch.no_grad():
+        t = time_calls(ct_attention_reference, inputs, max(1, args.iters // 3))
+        print(f"plain version: {t*1e3:.2f} ms  ({flops/t/1e12:.1f} TFLOP/s)",
+              flush=True)
+        res["plain_ms"] = t * 1e3
+        t = time_calls(ct_attention, inputs, args.iters)
+        print(f"production kernel: {t*1e3:.2f} ms  ({flops/t/1e12:.1f} TF/s)",
+              flush=True)
+        res["production_ms"] = t * 1e3
+        prod = ct_attention(*inputs)
+        print("fuse_denom and block_q have no counterpart in the CUDA "
+              "kernel: one timing stands for the variants of each exp "
+              f"(fuse={list(map(int, FUSE_DENOM))}, bq={list(BLOCK_Q)})",
+              flush=True)
+        for exp_dtype in (torch.float32, torch.bfloat16):
+            fn = make_variant(exp_dtype, BLOCK_Q[0])
+            t = time_calls(fn, inputs, args.iters)
+            err = (fn(*inputs) - prod).abs().max().item()
+            name = str(exp_dtype).split(".")[-1]
+            print(f"exp={name:9s}: {t*1e3:.2f} ms ({flops/t/1e12:.1f} TF/s)"
+                  f"  max|Δ|={err:.2e}", flush=True)
+            res["variants"].append(
+                {"exp_dtype": name, "fuse_denom": list(FUSE_DENOM),
+                 "block_q": list(BLOCK_Q), "ms": t * 1e3,
+                 "max_abs_err": err})
+    return res
+
+
+if __name__ == "__main__":
+    main()

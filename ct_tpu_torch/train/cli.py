@@ -14,9 +14,11 @@ mixup off for the last ``--no-mixup-iter`` iterations, checkpoints every
 port's eval CLI loads), one loss line per iteration on the log and the
 same keys as one JSON line per iteration in ``metrics.json``.
 
-The VOC root comes from ``VOC_ROOT`` (default ``data/VOCdevkit``). Flags of
-what the port does not run yet raise and name the ROADMAP item that will
-port it.
+The VOC root comes from ``VOC_ROOT`` (default ``data/VOCdevkit``). As in
+the reference, ``CT_ATTENTION_FLASH=0`` trains the CT attention with its
+blockwise backward instead of the flash one; it is read on every call of
+``main``. Flags of what the port does not run yet raise and name the
+ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -189,8 +191,13 @@ def main(argv=None) -> dict:
         phase=args.phase, setting=args.setting, split=args.split,
         shot=args.shot, instance_shot=args.instance_shot)
 
+    # the reference's switch between the CT attention's two backwards
+    ct_flash = os.environ.get("CT_ATTENTION_FLASH", "1") != "0"
+    logger.info("CT attention backward: %s",
+                "flash" if ct_flash else "blockwise (CT_ATTENTION_FLASH=0)")
     torch.manual_seed(0)
-    model = build_net(task, img_dim, device=device).train()
+    model = build_net(task, img_dim, device=device,
+                      ct_flash=ct_flash).train()
     optimizer, scheduler = build_optimizer(model, task, solver_cfg)
     ck = Checkpointer(args.save_folder)
     last = ck.resume_or_load(

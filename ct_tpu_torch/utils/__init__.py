@@ -1,0 +1,1 @@
+"""Small utilities of the port: device timing (``timing.py``)."""

@@ -18,7 +18,17 @@ plain version on the same card, f32 with TF32 off:
   and the θ and classifier products in another order);
 * ``nms_mask`` (the NMS kernel): the keep mask equal, bit for bit, to the
   plain fixpoint loop's on the card and on the CPU, on seeded and
-  tie-heavy boxes; ``batched_nms`` on the card equal to the CPU's.
+  tie-heavy boxes; ``batched_nms`` on the card equal to the CPU's;
+* ``ct_attention_cm_bwd`` (the blockwise backward) and the row-major
+  ``ct_attention`` / ``ct_attention_bwd``: max |Δ| ≤ 1e-4 on the forward,
+  ≤ 1e-4 · max |plain| per gradient (dwz too), and the autograd paths run
+  their kernels once each; ``ct_attention_variant`` (the bfloat16
+  exponential) within half of max |plain bf16 - plain f32|, what the
+  bfloat16 rounding itself moves the output by, and further than that
+  from the float32 kernel ``ct_attention``;
+* ``bias_relu_bwd``: the mask equal, bit for bit, to the plain version's,
+  and dbias within 1e-5 of each channel's Σ |masked| (f32 sums over up to
+  5.8 million values in another order).
 
 The size-64 model on the card is held to the same model on the CPU, in
 eval mode, as the int8 serving model (on the same scales: the int8 sums
@@ -35,11 +45,15 @@ import torch.nn.functional as F
 
 from ct_tpu_torch.config import resolve_task
 from ct_tpu_torch.models.rfbnet import build_net
+from ct_tpu_torch.ops.bias_relu import bias_relu_bwd, bias_relu_bwd_reference
 from ct_tpu_torch.ops.ct_attention import (
-    ct_attention_cm, ct_attention_cm_bwd_flash,
-    ct_attention_cm_bwd_flash_reference, ct_attention_cm_stats,
-    ct_attention_cm_stats_reference, ct_attention_reference_cm,
-    ct_attention_serving, ct_attention_serving_reference,
+    ct_attention, ct_attention_bwd, ct_attention_bwd_reference,
+    ct_attention_cm, ct_attention_cm_bwd, ct_attention_cm_bwd_flash,
+    ct_attention_cm_bwd_flash_reference, ct_attention_cm_bwd_reference,
+    ct_attention_cm_stats, ct_attention_cm_stats_reference,
+    ct_attention_reference, ct_attention_reference_cm, ct_attention_serving,
+    ct_attention_serving_reference, ct_attention_variant,
+    ct_attention_variant_reference,
 )
 from ct_tpu_torch.ops.nms import batched_nms, nms_mask, nms_mask_reference
 from ct_tpu_torch.ops.pool_relu import (
@@ -321,3 +335,109 @@ def test_serving_model_on_the_card_matches_the_cpu(cuda):
     for a, b in zip(out, ref):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+BLOCKWISE_SHAPES = [(2, 15, 11620, 1858), (3, 60, 1001, 97), (2, 7, 130, 65),
+                    (2, 64, 257, 3)]
+
+
+def assert_grads_close(grads, ref, tol=1e-4):
+    for name, a, r in zip(("dq", "dk", "dv", "dwz"), grads, ref):
+        scale = r.abs().max().item()
+        assert (a - r).abs().max().item() <= tol * scale, name
+
+
+@pytest.mark.parametrize("b,c,p,k", BLOCKWISE_SHAPES)
+def test_blockwise_backward_matches_plain_version(cuda, b, c, p, k):
+    q, kk, v, _, wz = inputs(c * p + k + 1, b, c, p, k, cuda)
+    g = torch.randn(b, c, p, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(k))
+    before = ct_attention_cm_bwd.launches
+    grads = ct_attention_cm_bwd(q, kk, v, wz, g)
+    plain = ct_attention_cm_bwd_reference(q, kk, v, wz, g)
+    torch.cuda.synchronize()
+    assert ct_attention_cm_bwd.launches == before + 1
+    assert_grads_close(grads, plain)
+
+
+def test_blockwise_autograd_runs_its_kernels(cuda):
+    q, kk, v, base, wz = inputs(6, 2, 60, 2000, 300, cuda)
+    args = [t.requires_grad_() for t in (q, kk, v, base, wz)]
+    counters = (ct_attention_cm, ct_attention_cm_stats,
+                ct_attention_cm_bwd_flash, ct_attention_cm_bwd)
+    before = [f.launches for f in counters]
+    out = ct_attention_cm(*args, flash=False)
+    grads = torch.autograd.grad(out.square().sum(), args)
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 0, 0, 1]
+    ref = torch.autograd.grad(
+        ct_attention_reference_cm(*args).square().sum(), args)
+    for a, r in zip(grads, ref):
+        assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+def rowmajor(args):
+    q, kk, v, base, wz = args
+    return (q.transpose(1, 2).contiguous(), kk, v,
+            base.transpose(1, 2).contiguous(), wz)
+
+
+@pytest.mark.parametrize("b,c,p,k", BLOCKWISE_SHAPES)
+def test_rowmajor_kernels_match_plain_versions(cuda, b, c, p, k):
+    q, kk, v, base, wz = rowmajor(inputs(c + p + k, b, c, p, k, cuda))
+    g = torch.randn(b, p, c, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(p))
+    before = (ct_attention.launches, ct_attention_bwd.launches)
+    with torch.no_grad():
+        out = ct_attention(q, kk, v, base, wz)
+        ref = ct_attention_reference(q, kk, v, base, wz)
+        grads = ct_attention_bwd(q, kk, v, wz, g)
+        plain = ct_attention_bwd_reference(q, kk, v, wz, g)
+    torch.cuda.synchronize()
+    assert (ct_attention.launches, ct_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert_grads_close(grads, plain)
+
+
+def test_rowmajor_autograd_runs_its_kernels(cuda):
+    args = [t.requires_grad_() for t in rowmajor(inputs(8, 2, 15, 2000, 300,
+                                                        cuda))]
+    before = (ct_attention.launches, ct_attention_bwd.launches)
+    grads = torch.autograd.grad(ct_attention(*args).square().sum(), args)
+    assert (ct_attention.launches, ct_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = torch.autograd.grad(
+        ct_attention_reference(*args).square().sum(), args)
+    for a, r in zip(grads, ref):
+        assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+@pytest.mark.parametrize("b,c,p,k", [(2, 60, 11620, 1858), (3, 15, 1001, 97)])
+def test_variant_matches_plain_version(cuda, b, c, p, k):
+    # the attention bench's inputs: normal × 0.3
+    args = tuple(t * 0.3 for t in rowmajor(inputs(c * k, b, c, p, k, cuda)))
+    before = ct_attention_variant.launches
+    out = ct_attention_variant(*args)
+    ref = ct_attention_variant_reference(*args)
+    torch.cuda.synchronize()
+    assert ct_attention_variant.launches == before + 1
+    tol = 0.5 * (ref - ct_attention_reference(*args)).abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+    assert (out - ct_attention(*args)).abs().max().item() > tol
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 300, 300), (3, 5, 7, 9),
+                                   (4, 512, 38, 38)])
+def test_bias_relu_kernel_matches_plain_version(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    g = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+    y = torch.from_numpy(np.maximum(rng.standard_normal(shape, np.float32),
+                                    0)).to(cuda)
+    before = bias_relu_bwd.launches
+    masked, dbias = bias_relu_bwd(g, y)
+    ref, ref_dbias = bias_relu_bwd_reference(g, y)
+    torch.cuda.synchronize()
+    assert bias_relu_bwd.launches == before + 1
+    assert torch.equal(masked, ref)
+    assert ((dbias - ref_dbias).abs()
+            <= 1e-5 * ref.abs().sum(dim=(0, 2, 3))).all()

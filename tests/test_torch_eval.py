@@ -12,7 +12,9 @@
   and per-class AP against the JAX package's ``voc_eval``.
 * Gated by ``CT_TPU_SLOW_TESTS``: the CLI over all 500 fixture images
   against the JAX package's recorded mAP (|ΔmAP| ≤ 0.003) and detections,
-  in f32 and on the int8 serving path (``--int8 --calib-images 8``).
+  in f32 and on the int8 serving path (``--int8 --calib-images 8``); and
+  the int8 path quantized from the JAX package's own calibration, against
+  the JAX package's int8 eval on the CPU.
 """
 
 import json
@@ -237,6 +239,78 @@ def test_voc500_map_matches_jax(tmp_path, monkeypatch, config):
     assert abs(res["mAP"] - ref_map) <= 0.003
     assert abs(res["novel_mAP"] - ref_novel) <= 0.003
     assert stats["match_rate"] > 0.95
+
+
+# the JAX package's int8 eval of the 500 images on the CPU, calibrated on
+# the same 8 images (its recorded int8 eval above ran on the TPU):
+#   JAX_PLATFORMS=cpu VOC_ROOT=.parity_p2/voc/VOCdevkit python test.py -p 2 \
+#     --setting incre --split 1 --load-file .parity_p2/ref_model.pth \
+#     --save-folder .parity_p2/ours_eval_int8_cpu -b 8 --int8 \
+#     --calib-images 8
+# with its result (the same command with --retest) in ours_eval_int8_cpu.json
+JAX_INT8_CPU = "ours_eval_int8_cpu"
+
+
+@pytest.mark.skipif(not os.environ.get("CT_TPU_SLOW_TESTS"),
+                    reason="needs CT_TPU_SLOW_TESTS=1 (500-image eval on "
+                           "the CPU, ~10 min)")
+def test_voc500_int8_on_jax_calibration(tmp_path, monkeypatch):
+    """The port's CPU int8 eval of the 500 images, quantized from the JAX
+    package's calibration of the same 8 train-split images instead of its
+    own, held to the JAX package's int8 eval on the CPU at the band of
+    ``test_voc500_map_matches_jax``. It tells apart a fault of the port's
+    int8 path (it would miss this record too) from the difference between
+    the CPU's and the TPU's arithmetic, on which JAX's recorded int8 eval
+    ran; its distance to that record is printed beside."""
+    import argparse
+    import dataclasses
+
+    from ct_tpu.models.fold_bn import fold_variables
+    from ct_tpu.models.quantize import calibrate as j_calibrate
+    from ct_tpu.tools.diff_detections import diff
+    from ct_tpu_torch import test as cli
+    from ct_tpu_torch.models import quantize
+    from ct_tpu_torch.models.fold_bn import fold_bn
+    from test_torch_serving import by_name
+
+    flags, tpu_dir, _, _ = VOC500["int8"]
+    monkeypatch.setenv("VOC_ROOT", VOC_ROOT)
+    args = argparse.Namespace(phase=2, setting="incre", split=1)
+    images = cli.calibration_images(args, 300, 8)           # NCHW
+    state = load_reference_pth(REF_MODEL)
+    jnet = dataclasses.replace(
+        j_build_net(j_resolve_task(2, "incre", "ours", "VOC"), 300),
+        fold_bn=True)
+    folded = fold_variables(torch_state_to_variables(state))
+    j_calib = by_name(j_calibrate(
+        jnet, folded, [jnp.asarray(images.transpose(0, 2, 3, 1))]))
+    net = build_net(resolve_task(2, "incre", "ours", "VOC"), 300,
+                    device="cpu")
+    net.load_state_dict(state)
+    own = quantize.calibrate(fold_bn(net), [torch.from_numpy(images)])
+    assert set(own) == set(j_calib)
+    rel = {n: abs(own[n].item() - float(v)) / float(v)
+           for n, v in j_calib.items()}
+
+    calib = {n: torch.tensor(v) for n, v in j_calib.items()}
+    monkeypatch.setattr(quantize, "calibrate", lambda _net, _batches: calib)
+    save = str(tmp_path / "out")
+    res = cli.main(["-p", "2", "--setting", "incre", "--split", "1",
+                    "--load-file", REF_MODEL, "--save-folder", save,
+                    "-b", "8", "--device", "cpu"] + flags)
+    dets = os.path.join(save, "inference", "detections.pkl")
+    with open(os.path.join(PARITY, JAX_INT8_CPU + ".json")) as f:
+        ref = json.load(f)
+    stats = {name: diff(dets, os.path.join(PARITY, d, "inference",
+                                           "detections.pkl"))
+             for name, d in (("jax_cpu", JAX_INT8_CPU), ("jax_tpu", tpu_dir))}
+    print(json.dumps({"port_on_jax_calibration": res, "jax_cpu": ref,
+                      "diff": stats,
+                      "absmax_differ": sum(r > 0 for r in rel.values()),
+                      "absmax_max_rel": max(rel.values())}, default=float))
+    assert abs(res["mAP"] - ref["mAP"]) <= 0.003
+    assert abs(res["novel_mAP"] - ref["novel_mAP"]) <= 0.003
+    assert stats["jax_cpu"]["match_rate"] > 0.95
 
 
 def test_compare_detections_flags_what_differs():
