@@ -7,7 +7,8 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
 
 1. env     the card's name and power limit (nvidia-smi), CUDA and nvcc.
 2. build   every CUDA source of the port, built with nvcc from csrc/,
-           one nvcc each, all started together.
+           one nvcc each, all started together; ptxas's registers and
+           spill bytes of every kernel, under its name.
 3. kernel  each kernel on the card against its plain PyTorch version, f32
            with TF32 off: ``ct_attention_cm`` (eval forward) at the eval
            path's shapes (B=8, C=15), at the transfer width (C=60) and at
@@ -28,9 +29,15 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            loop (whose sweeps it counts). ``ct_attention_cm_bwd`` (the
            blockwise backward of CT_ATTENTION_FLASH=0) at B=8 with C=15
            and 60 and at ragged shapes, also through autograd, timed at
-           B=64 beside the SDPA backward; the row-major ``ct_attention``
+           B=64 beside the SDPA backward; the flash and blockwise
+           backwards also timed at B=64 and C=60, the transfer width, each
+           backward with two bounds (its flops on the FP32 pipes, and
+           three times its flops on the tensor cores in TF32, the 3xTF32
+           products its dq and dk/dv kernels run) and held to give the
+           same bits on a second launch; the row-major ``ct_attention``
            and ``ct_attention_bwd`` at the same shapes, timed at the
-           benches' batches (128 forward, 64 backward) at C=60;
+           benches' batches (128 forward, 64 backward) at C=60, the
+           backward also at C=15;
            ``ct_attention_variant`` (the bfloat16 exponential) at the
            same shapes within half of the bfloat16 rounding's own effect
            and further than that from ``ct_attention``, timed at B=128;
@@ -92,9 +99,10 @@ REF_MODEL = os.path.join(".parity_p2", "ref_model.pth")
 # the profiler's tables of one eval step and one train step
 PROFILE_DIR = os.path.join("build", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores
-# and HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
+# TF32 on the tensor cores (dense) and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 KERNEL_TOL = 1e-4      # max |kernel - plain|, f32, K up to 1858 terms
@@ -187,8 +195,10 @@ def phase_build() -> dict:
 
     out = {}
     for name, res in kernels.build_all().items():
+        # each kernel's (mangled) name, then its registers and spill bytes
         ptxas = [ln.strip() for ln in res["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "Function properties for" in ln or "registers" in ln
+                 or "spill" in ln]
         out[name] = {"seconds": res["seconds"], "built": res["built"],
                      "ptxas": ptxas}
     return out
@@ -366,6 +376,32 @@ def bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def tc_bound(flops: float, nbytes: float) -> dict:
+    """The bounds of a backward whose products run on the tensor cores in
+    3xTF32: on the FP32 pipes (``flops`` over the f32 peak) and on the
+    tensor cores (3 × ``flops`` over the TF32 peak), each against the bytes
+    over the memory rate. ``bound_ms`` is the lesser, ``bound_pipe`` names
+    it."""
+    fp32 = bound(flops, nbytes)
+    ops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    tc_ms = max(ops_ms, bytes_ms)
+    if tc_ms <= fp32["bound_ms"]:
+        best = {"bound_ms": tc_ms, "bound_pipe": "3xTF32 tensor cores",
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    else:
+        best = {**fp32, "bound_pipe": "FP32"}
+    return {**best, "bound_fp32_ms": fp32["bound_ms"], "bound_tc_ms": tc_ms}
+
+
+def same_bits(run) -> bool:
+    """Whether two calls of ``run()`` give the same tensors bit for bit."""
+    import torch
+
+    first, second = run(), run()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def device_normal(rng, shape, scale: float = 1.0):
     """Seeded normal float32 values made on the card by a generator seeded
     from ``rng``: large inputs cost no host time."""
@@ -430,6 +466,8 @@ def training_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
         gd = g * delta
         colsum = (gd * wz[None, :, None]).sum(dim=1, keepdim=True)
         grads = ct_attention_cm_bwd_flash(q, k, v, wz, g, m, z, colsum)
+        deterministic = same_bits(lambda: ct_attention_cm_bwd_flash(
+            q, k, v, wz, g, m, z, colsum))
         plain = ct_attention_cm_bwd_flash_reference(q, k, v, wz, g, m, z,
                                                     colsum)
         scales = [r.abs().max().item() for r in plain]
@@ -448,9 +486,10 @@ def training_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
     res = {"B": b, "C": c, "P": p, "K": kk,
            "stats_max_abs_err": max(fwd_err.values()), "stats_err": fwd_err,
            "stats_tol": KERNEL_TOL, "bwd_max_abs_err": max(errs),
-           "bwd_rel_err": bwd_rel, "bwd_tol": BWD_TOL}
+           "bwd_rel_err": bwd_rel, "bwd_tol": BWD_TOL,
+           "bwd_deterministic": deterministic}
     if not (max(fwd_err.values()) <= KERNEL_TOL
-            and max(bwd_rel.values()) <= BWD_TOL):
+            and max(bwd_rel.values()) <= BWD_TOL and deterministic):
         raise AssertionError(f"training attention kernels disagree with "
                              f"their plain versions: {res}")
     if not time_it:
@@ -475,8 +514,8 @@ def training_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
                 q, k, v, wz, g, m, z, colsum), 5),
             plain_ms=cuda_ms(lambda: ct_attention_cm_bwd_flash_reference(
                 q, k, v, wz, g, m, z, colsum), 3, warmup=1),
-            **bound(10 * b * p * kk * c,
-                    4 * (3 * b * c * p + 4 * b * kk * c + c + 3 * b * p)))
+            **tc_bound(10 * b * p * kk * c,
+                       4 * (3 * b * c * p + 4 * b * kk * c + c + 3 * b * p)))
     res["bwd"]["library_ms"] = sdpa_backward_ms(
         q.transpose(1, 2), k, v, (g * wz[None, :, None]).transpose(1, 2), 5)
     return res
@@ -499,6 +538,7 @@ def blockwise_case(rng, b, c, p, kk, time_it: bool) -> dict:
     wz = t(c, scale=0.1)
     with torch.no_grad():
         grads = ct_attention_cm_bwd(q, k, v, wz, g)
+        deterministic = same_bits(lambda: ct_attention_cm_bwd(q, k, v, wz, g))
         plain = ct_attention_cm_bwd_reference(q, k, v, wz, g)
         rel = grads_rel_err(grads, plain)
         err = max((a - r).abs().max().item() for a, r in zip(grads, plain))
@@ -512,8 +552,8 @@ def blockwise_case(rng, b, c, p, kk, time_it: bool) -> dict:
     del args, auto, plain
     torch.cuda.synchronize()
     res = {"B": b, "C": c, "P": p, "K": kk, "max_abs_err": err,
-           "rel_err": rel, "tol": BWD_TOL}
-    if not max(rel.values()) <= BWD_TOL:
+           "rel_err": rel, "tol": BWD_TOL, "deterministic": deterministic}
+    if not (max(rel.values()) <= BWD_TOL and deterministic):
         raise AssertionError(f"ct_attention_cm_bwd disagrees with its plain "
                              f"version: {res}")
     if time_it:
@@ -523,8 +563,8 @@ def blockwise_case(rng, b, c, p, kk, time_it: bool) -> dict:
                 ms=cuda_ms(lambda: ct_attention_cm_bwd(q, k, v, wz, g), 5),
                 plain_ms=cuda_ms(lambda: ct_attention_cm_bwd_reference(
                     q, k, v, wz, g), 3, warmup=1),
-                **bound(12 * b * p * kk * c,
-                        4 * (3 * b * c * p + 4 * b * kk * c + 2 * c)))
+                **tc_bound(12 * b * p * kk * c,
+                           4 * (3 * b * c * p + 4 * b * kk * c + 2 * c)))
         res["library_ms"] = sdpa_backward_ms(
             q.transpose(1, 2), k, v, (g * wz[None, :, None]).transpose(1, 2),
             5)
@@ -554,6 +594,7 @@ def rowmajor_case(rng, b, c, p, kk, time_fwd: int = 0,
         err = (ct_attention(q, k, v, base, wz)
                - ct_attention_reference(q, k, v, base, wz)).abs().max().item()
         grads = ct_attention_bwd(q, k, v, wz, g)
+        deterministic = same_bits(lambda: ct_attention_bwd(q, k, v, wz, g))
         plain = ct_attention_bwd_reference(q, k, v, wz, g)
         rel = grads_rel_err(grads, plain)
         bwd_err = max((a - r).abs().max().item() for a, r in zip(grads,
@@ -562,8 +603,9 @@ def rowmajor_case(rng, b, c, p, kk, time_fwd: int = 0,
     torch.cuda.synchronize()
     res = {"B": b, "C": c, "P": p, "K": kk, "fwd_max_abs_err": err,
            "fwd_tol": KERNEL_TOL, "bwd_rel_err": rel, "bwd_tol": BWD_TOL,
-           "bwd_max_abs_err": bwd_err}
-    if not (err <= KERNEL_TOL and max(rel.values()) <= BWD_TOL):
+           "bwd_max_abs_err": bwd_err, "bwd_deterministic": deterministic}
+    if not (err <= KERNEL_TOL and max(rel.values()) <= BWD_TOL
+            and deterministic):
         raise AssertionError(f"the row-major kernels disagree with their "
                              f"plain versions: {res}")
     with torch.no_grad():
@@ -589,8 +631,8 @@ def rowmajor_case(rng, b, c, p, kk, time_fwd: int = 0,
                 ms=cuda_ms(lambda: ct_attention_bwd(q, k, v, wz, g), 5),
                 plain_ms=cuda_ms(lambda: ct_attention_bwd_reference(
                     q, k, v, wz, g), 3, warmup=1),
-                **bound(12 * n * p * kk * c,
-                        4 * (3 * n * p * c + 4 * n * kk * c + 2 * c)))
+                **tc_bound(12 * n * p * kk * c,
+                           4 * (3 * n * p * c + 4 * n * kk * c + 2 * c)))
     if time_bwd:
         res["bwd"]["library_ms"] = sdpa_backward_ms(q, k, v, g * wz, 5)
     return res
@@ -755,6 +797,9 @@ def phase_kernel(seed: int) -> dict:
                                                        False),
         "train_timed": training_attention_case(rng, TRAIN_BATCH, 15, 11620,
                                                1858, True),
+        # the transfer width, where the backward kernels take the most time
+        "train_timed_transfer": training_attention_case(
+            rng, TRAIN_BATCH, 60, 11620, 1858, True),
         # the serving head at the serving path's shapes (B=8; incre C=15 and
         # N=5, transfer C=60 and N=20), ragged P and K
         "serving_incre": serving_case(rng, 8, 15, 11620, 1858, 5, True),
@@ -777,9 +822,12 @@ def phase_kernel(seed: int) -> dict:
         "blockwise_ragged_narrow": blockwise_case(rng, 2, 7, 130, 65, False),
         "blockwise_timed": blockwise_case(rng, TRAIN_BATCH, 15, 11620, 1858,
                                           True),
+        "blockwise_timed_transfer": blockwise_case(rng, TRAIN_BATCH, 60,
+                                                   11620, 1858, True),
         # the row-major attention of the kernel benches: checked at batch
         # 8, timed at the benches' batches at the transfer width
-        "rowmajor_incre": rowmajor_case(rng, 8, 15, 11620, 1858),
+        "rowmajor_incre": rowmajor_case(rng, 8, 15, 11620, 1858,
+                                        time_bwd=BENCH_BWD_BATCH),
         "rowmajor_transfer": rowmajor_case(
             rng, 8, 60, 11620, 1858, BENCH_FWD_BATCH, BENCH_BWD_BATCH),
         "rowmajor_ragged": rowmajor_case(rng, 3, 60, 1001, 97),
@@ -1325,6 +1373,29 @@ def kernels_line(results: dict) -> list:
     serving = results["serving"]["launches"]
     rowmajor = kern["rowmajor_transfer"]
     att = "ct_tpu/ops/ct_attention.py:"
+
+    def pipes(t):
+        return {k: t[k] for k in ("bound_pipe", "bound_fp32_ms",
+                                  "bound_tc_ms")}
+
+    def at_width(t, c):
+        return {f"{k}_c{c}": t[k]
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+    # the backwards on the tensor cores: both bounds, and each at the other
+    # width too (rows 3 and 4 are timed on the train step's C=15, row 5's
+    # backward on the bench's C=60)
+    extra = {
+        "ct_attention_cm_bwd_flash": {
+            **pipes(timed["bwd"]),
+            **at_width(kern["train_timed_transfer"]["bwd"], 60)},
+        "ct_attention_cm_bwd": {
+            **pipes(kern["blockwise_timed"]),
+            **at_width(kern["blockwise_timed_transfer"], 60)},
+        "ct_attention_bwd": {
+            **pipes(rowmajor["bwd"]),
+            **at_width(kern["rowmajor_incre"]["bwd"], 15)},
+    }
     rows = [
         ("ct_attention_cm", "ct_attention_cm.cu", att + "146",
          results["model"]["launches"], incre["max_abs_err"], incre),
@@ -1360,7 +1431,7 @@ def kernels_line(results: dict) -> list:
              "launches": launches[name], "max_abs_err": err,
              "ms": t["ms"], "plain_ms": t["plain_ms"],
              "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-             "library_ms": t["library_ms"]}
+             "library_ms": t["library_ms"], **extra.get(name, {})}
             for name, src, replaces, launches, err, t in rows]
 
 

@@ -22,32 +22,78 @@
 // q, g, dq are class-major [B,C,P] or row-major [B,P,C]; k, v, dk, dv are
 // [B,K,C]; wz, dwz are [C]; m, z, colsum are [B,P].
 //
-// What bounds it on the H100: arithmetic, 10*B*P*K*C flops for the flash
-// backward (scores, dattn, dq, dk, dv) and 12*B*P*K*C for the blockwise one
-// (which also recomputes the scores' softmax and delta), against q, g, dq
-// and the small k/v/dk/dv moved once.
+// What bounds it on the H100: arithmetic. The flash backward needs
+// 10*B*P*K*C flops (scores, dattn, dq, dk, dv), the blockwise one
+// 12*B*P*K*C; two kernels that each recompute the scores and dattn do
+// 14*B*P*K*C. On the FP32 pipes (67 TFLOP/s) that is 17 ms at B=64, C=60,
+// P=11,620, K=1,858; as three TF32 products on the tensor cores (495
+// TFLOP/s, the data sheet's dense rate) 7 ms, though mma.sync, unlike
+// wgmma, may not reach that rate. The bytes (q, g, dq and the small k, v,
+// dk, dv) are a few hundred MB, a tenth of that.
 //
-// Design: all on the FP32 pipes, with no float atomics, so the result does
-// not depend on the order blocks run in.
+// Design. No float atomics, so the result does not depend on the order in
+// which blocks run, and two launches give the same bits.
 //  0. (blockwise only) stats: one thread per anchor, as the forward
 //     (softmax_sum), recomputes m, z and delta, then writes m, z and
 //     colsum, and each block's partial sum of g*delta over its 128 anchors
 //     (warp shuffles, then the four warps in order); dwz_reduce sums the
 //     partials of every block in a fixed order, one block per class.
-//  1. dq: one thread per anchor, 128 anchors per block, grid (P tiles, B).
-//     A thread keeps q, g*wz and its dq accumulators in registers and walks
-//     the keys in tiles of 64 staged in shared memory (warp-wide broadcast
-//     reads).
-//  2. dk, dv: one thread per key, 128 keys per block, grid (K tiles, B). A
-//     thread keeps its k and v rows and its dk and dv accumulators in
-//     registers and walks the anchors in tiles of 64, with q, g*wz, m, 1/z
-//     and colsum of the tile staged in shared memory.
-// Each kernel computes the scores and the exponential again, so the
-// exponential runs twice per (anchor, key) in the flash backward and three
-// times in the blockwise one; every kernel sums a score in the forward's
-// order (dot_row), so all see the same s. Ragged P and K are masked: a
-// thread past the end computes on zeros (its m and 1/z are 0, so attn is 0)
-// and stores nothing, and the last tile of keys or anchors is short.
+//  1. dq: a block owns 64 anchors of one image, 16 per warp, and walks the
+//     keys in tiles of 32. Per group of 8-key chunks a warp computes the
+//     score tile S = Q K^T and dP = (G wz) V^T [16 x 8 each], then attn and
+//     ds elementwise from its rows' m, 1/z and colsum, then dQ += ds K.
+//  2. dk, dv: a block owns 64 keys, 16 per warp, and walks the anchors in
+//     tiles of 32: S^T = K Q^T and dP^T = (V wz) G^T, then dK += ds^T Q and
+//     dV += attn^T G (scaled by wz once, at the end).
+// Every product is a warp-wide mma.sync m16n8k8 on the tensor cores in
+// 3xTF32: each operand a is split as big + small and a*b = small*big +
+// big*small + big*big, accumulated in f32. The tensor cores read a TF32
+// operand from the top 19 bits of its register, so big = a + half a TF32
+// step (read: a rounded to nearest, ties away, as cvt.rna.tf32 rounds) and
+// small = a - tf32(big) (read: truncated), three integer and float
+// instructions where two cvt.rna take eight. That keeps about 21 of
+// float32's 24 mantissa bits, where a single TF32 product keeps 11: scores
+// reach |s| ~ 30 at C=60, so one TF32 pass would move attn by ~1%, far
+// outside the backward's band (1e-4 of each output's largest entry). The
+// accumulator of S (C layout: row g, columns 2t and 2t+1 of a lane's quad)
+// becomes the A operand of the next product (rows g, g+8, columns t and
+// t+4) without a shuffle or a pass through shared memory: the B fragments
+// of the score products read the items (keys, or anchors) in the order
+// pi(n) = 4(n&1) + n/2, so that a lane's accumulator columns 2t, 2t+1 hold
+// items t and t+4, the very k indices its A fragment needs.
+// The operand rows a warp owns (q and g*wz in dq, k and v*wz in dk/dv) and
+// its accumulators stay in registers; at CP=64 the rows stay in float32
+// and are split where they are used (pinned there, so that the compiler
+// does not hoist 128 registers of splits out of the loop), at CP=16 they
+// are split once. The tiles of the other side are staged in shared memory
+// with cp.async, double-buffered: class-major per-class rows of 32 anchors
+// in 16-byte copies where P and the base are 16-byte aligned, else 4-byte
+// copies (row-major rows and k/v at C=15 are 60 bytes; P=1001 gives
+// unaligned class rows), zero-filled past P, K and C. Once a tile lands the
+// block splits it into hi and lo tiles, so that each float is split once
+// and not by each of the four warps. dk/dv reads the tile's m, z and
+// colsum from their staging buffer until the end of its step, so it
+// issues the next tile's copies only after the barrier that follows the
+// step (dq, whose staged tiles are read only before its second barrier,
+// issues them before waiting for the current tile). A tile is [CP][32]
+// floats, its items XOR-swizzled by class so that the 16-byte copies and
+// both fragment loads are free of bank conflicts. The long sums (dq over
+// the keys, dk and dv over the anchors) take each step's product from a
+// fresh accumulator and add it with a rounded f32 add (mma3_add): the
+// tensor cores truncate their accumulator at every step, a bias that grows
+// with the step count.
+// What the card showed (PERF.md): with cvt.rna the splits were more
+// than half of the loop's instructions; neither a third block per SM nor
+// separate accumulators for the small terms moved the time.
+// Ragged P and K are masked after the exponential, as the JAX kernel masks
+// them: a padded anchor's or key's attn is 0, and it is never stored.
+// Padded classes are zero. The scores are no longer the forward's bit for
+// bit: the tensor cores sum s in another order than the forward's dot_row,
+// so s differs from the forward's by f32 rounding, well inside the bands;
+// the exponential is __expf (ex2.approx of s*log2 e), within a few ulp of
+// expf.
+
+#include <stdint.h>
 
 #include "ct_attention_common.cuh"
 
@@ -141,137 +187,567 @@ dwz_reduce_kernel(const float* __restrict__ part, float* __restrict__ dwz,
   if (threadIdx.x == 0) dwz[c] = red[0];
 }
 
+// --- the tiled tensor-core kernels: dq and dk, dv -------------------------
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 16 * kWarps;  // anchors (dq) or keys (dk/dv) a block
+constexpr int kItems = 32;          // keys (dq) or anchors (dk/dv) a tile
+
+// bits + 0x1000, kept where it is written (volatile: a split inside a loop
+// is not hoisted out of it).
+__device__ __forceinline__ uint32_t add_half_ulp_here(uint32_t bits) {
+  uint32_t r;
+  asm volatile("add.u32 %0, %1, 4096;" : "=r"(r) : "r"(bits));
+  return r;
+}
+
+// x as hi + lo for the tensor cores, which read a TF32 operand from the top
+// 19 bits of its register and drop the low 13 (the compiler's own
+// cvt.rna.tf32.f32 relies on this too). hi = x + half a TF32 step, so that
+// it reads as x rounded to nearest TF32, ties away, as cvt.rna rounds; lo =
+// x - tf32(hi), exact in f32, reads truncated to TF32. |x - tf32(hi) -
+// tf32(lo)| < 2^-21 |x|, in 3 instructions where two cvt.rna take 8.
+template <int N, bool kHere = false>
+__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&hi)[N],
+                                      uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t bits = __float_as_uint(x[i]);
+    hi[i] = kHere ? add_half_ulp_here(bits) : bits + 0x1000u;
+    lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i] & 0xffffe000u));
+  }
+}
+
+// d += a b on the tensor cores, one m16n8k8 TF32 product.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b on the tensor cores, from a zero accumulator.
+__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+// d += a b in 3xTF32, a and b split (see split): the small terms first,
+// then big x big.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4],
+                                     const uint32_t (&bhi)[2],
+                                     const uint32_t (&blo)[2]) {
+  mma(d, alo, bhi);
+  mma(d, ahi, blo);
+  mma(d, ahi, bhi);
+}
+
+// sum += a b in 3xTF32, the product formed in a fresh accumulator and added
+// with a rounded f32 add. The tensor cores truncate their f32 accumulator
+// at every step; over the thousands of steps of a sum over all anchors or
+// keys that error is biased and grows with the count (2.3e-4 of dk's
+// largest entry at P=32,756 on an H100 when dk was the accumulator
+// itself), where rounded adds keep it at the f32 sum's own.
+__device__ __forceinline__ void mma3_add(float (&sum)[4],
+                                         const uint32_t (&ahi)[4],
+                                         const uint32_t (&alo)[4],
+                                         const uint32_t (&bhi)[2],
+                                         const uint32_t (&blo)[2]) {
+  float t[4];
+  mma_zero(t, alo, bhi);
+  mma(t, ahi, blo);
+  mma(t, ahi, bhi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sum[i] += t[i];
+}
+
+// The A operand a warp keeps for its 16 rows, k = classes: x[kk] is the
+// fragment of classes 8kk .. 8kk+7 (a0: row g, class t; a1: row g+8,
+// class t; a2, a3: class t+4). With kHoist it is split once; otherwise it
+// is split at each use.
+template <int NK, bool kHoist>
+struct RowsA {
+  float x[NK][4];
+  uint32_t hi[kHoist ? NK : 1][4];
+  uint32_t lo[kHoist ? NK : 1][4];
+
+  __device__ __forceinline__ void prepare() {
+    if (kHoist) {
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) split<4>(x[kk], hi[kHoist ? kk : 0],
+                                               lo[kHoist ? kk : 0]);
+    }
+  }
+  __device__ __forceinline__ void at(int kk, uint32_t (&h)[4],
+                                     uint32_t (&l)[4]) const {
+    if (kHoist) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[i] = hi[kHoist ? kk : 0][i];
+        l[i] = lo[kHoist ? kk : 0][i];
+      }
+    } else {
+      split<4, true>(x[kk], h, l);
+    }
+  }
+};
+
+// Word of (class c, item i) in a [CP][kItems] tile: the items of a class
+// XOR-swizzled by bits 0-2 of the class, so that the fragment loads below
+// and the 16-byte copies hit 32 distinct banks.
+__device__ __forceinline__ int swz(int c, int i) {
+  return c * kItems + (i ^ (((c & 3) << 3) | (c & 4)));
+}
+
+// B operand with k = classes 8kk + t (+4) and n = items n0 + pi(g),
+// pi(g) = 4(g&1) + g/2: accumulator columns 2t, 2t+1 then hold items t and
+// t+4, the k indices of the A fragment of the next product.
+__device__ __forceinline__ void load_kn(const uint32_t* hi, const uint32_t* lo,
+                                        int kk, int n0, int g, int t,
+                                        uint32_t (&bhi)[2],
+                                        uint32_t (&blo)[2]) {
+  const int i = n0 + ((g & 1) << 2) + (g >> 1);
+  const int w0 = swz(8 * kk + t, i), w1 = swz(8 * kk + t + 4, i);
+  bhi[0] = hi[w0];
+  bhi[1] = hi[w1];
+  blo[0] = lo[w0];
+  blo[1] = lo[w1];
+}
+
+// B operand with k = items i0 + t (+4) and n = classes 8nn + g.
+__device__ __forceinline__ void load_nk(const uint32_t* hi, const uint32_t* lo,
+                                        int i0, int nn, int g, int t,
+                                        uint32_t (&bhi)[2],
+                                        uint32_t (&blo)[2]) {
+  const int w0 = swz(8 * nn + g, i0 + t), w1 = swz(8 * nn + g, i0 + t + 4);
+  bhi[0] = hi[w0];
+  bhi[1] = hi[w1];
+  blo[0] = lo[w0];
+  blo[1] = lo[w1];
+}
+
+// Split a staged [CP][kItems] tile into hi and lo tiles (see split), a
+// block's threads four floats each at a time: every warp then reads its B
+// operands split, where it would otherwise split the same floats itself.
+template <int CP>
+__device__ __forceinline__ void split_tile(const float* raw, uint32_t* hi,
+                                           uint32_t* lo) {
+  for (int e = threadIdx.x * 4; e < CP * kItems; e += kThreads * 4) {
+    const float4 x4 = *reinterpret_cast<const float4*>(raw + e);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    uint32_t h[4], l[4];
+    split<4>(x, h, l);
+    *reinterpret_cast<uint4*>(hi + e) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + e) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// Dynamic shared memory of a dq or dk/dv block: two arrays staged
+// double-buffered [2][2][CP * kItems] floats, then their hi and lo tiles
+// [2][2][CP * kItems].
+template <int CP>
+constexpr size_t kTileBytes = 8 * sizeof(float) * CP * kItems;
+
+// cp.async of 4 or 16 bytes into shared memory, zero-filled where !ok (src
+// must then still be a valid address; it is not read).
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one group of copies is in flight.
+__device__ __forceinline__ void copy_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Wait until every group of copies has landed.
+__device__ __forceinline__ void copy_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage items [0, n) of a tile whose item i is the row src[i*C .. i*C+C):
+// k, v and row-major q, g. 4-byte copies; a warp's 32 lanes take 8 items x
+// 4 classes (8 sectors a request, no bank conflicts).
+template <int CP>
+__device__ __forceinline__ void stage_rows(float* tile,
+                                           const float* __restrict__ src,
+                                           int n, int C) {
+  const int lane = threadIdx.x % 32;
+  const int r = lane % 8, u = lane / 8;
+  for (int blk = threadIdx.x / 32; blk < CP; blk += kWarps) {
+    const int i = (blk % 4) * 8 + r;
+    const int c = (blk / 4) * 4 + u;
+    const bool ok = i < n && c < C;
+    copy4(tile + swz(c, i), ok ? src + static_cast<size_t>(i) * C + c : src,
+          ok);
+  }
+}
+
+// Stage items [0, n) of a tile whose class c is the row src[c*P ..]:
+// class-major q, g. 16-byte copies of 4 items where `vec` (P a multiple of
+// 4 and src 16-byte aligned, so n is a multiple of 4 too), else 4-byte ones.
+template <int CP>
+__device__ __forceinline__ void stage_cols(float* tile,
+                                           const float* __restrict__ src,
+                                           int n, int C, int P, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < CP * (kItems / 4); e += kThreads) {
+      const int c = e / (kItems / 4);
+      const int i = (e % (kItems / 4)) * 4;
+      const bool ok = i < n && c < C;
+      copy16(tile + swz(c, i),
+             ok ? src + static_cast<size_t>(c) * P + i : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < CP * kItems; e += kThreads) {
+      const int c = e / kItems;
+      const int i = e % kItems;
+      const bool ok = i < n && c < C;
+      copy4(tile + swz(c, i), ok ? src + static_cast<size_t>(c) * P + i : src,
+            ok);
+    }
+  }
+}
+
+// Items processed together, 8 a chunk: more chunks share each split of the
+// A operand, at 8 accumulator registers a chunk.
+template <int CP>
+constexpr int kChunks = CP <= 16 ? 2 : 4;
+
 template <int CP, bool kRowMajor>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ wz,
               const float* __restrict__ g, const float* __restrict__ m,
               const float* __restrict__ z, const float* __restrict__ colsum,
               float* __restrict__ dq, int C, int P, int K) {
-  static_assert(CP % 4 == 0, "padded class count must be a multiple of 4");
-  __shared__ __align__(16) float smem[2 * kKeyTile * CP];
-  float* ks = smem;
-  float* vs = smem + kKeyTile * CP;
+  static_assert(CP % 8 == 0 && kThreads % 32 == 0, "tile shapes");
+  constexpr int NK = CP / 8;
+  constexpr int NCH = kChunks<CP>;
+  constexpr int kTile = CP * kItems;
+  extern __shared__ __align__(16) float smem[];
+  // staged k, v tiles of buffer buf: smem + (2 buf + 0 or 1) kTile; their
+  // hi and lo tiles after them
+  uint32_t* khi = reinterpret_cast<uint32_t*>(smem + 4 * kTile);
+  uint32_t* klo = khi + kTile;
+  uint32_t* vhi = klo + kTile;
+  uint32_t* vlo = vhi + kTile;
 
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
   const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kThreads;
-  const int p = p0 + threadIdx.x;
-  const bool live = p < P;
-  const size_t row = static_cast<size_t>(b) * P + p;
+  const int p0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16;
 
-  float qr[CP];
-  float gw[CP];
-  float acc[CP];
-  load_rows<CP, kRowMajor>(q, b, p0, C, P, smem, qr);
-  load_rows<CP, kRowMajor>(g, b, p0, C, P, smem, gw);
+  // this warp's rows of q and g*wz, zero past P and C
+  RowsA<NK, (CP <= 16)> qa, ga;
 #pragma unroll
-  for (int c = 0; c < CP; ++c) {
-    gw[c] = c < C ? gw[c] * wz[c] : 0.f;
-    acc[c] = 0.f;
+  for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int p = p0 + gq + (r % 2) * 8;
+      const int c = 8 * kk + tq + (r / 2) * 4;
+      const bool ok = p < P && c < C;
+      const size_t o = kRowMajor
+                           ? (static_cast<size_t>(b) * P + p) * C + c
+                           : (static_cast<size_t>(b) * C + c) * P + p;
+      qa.x[kk][r] = ok ? q[o] : 0.f;
+      ga.x[kk][r] = ok ? g[o] * wz[c] : 0.f;
+    }
   }
-  const float mp = live ? m[row] : 0.f;
-  const float iz = live ? 1.f / z[row] : 0.f;
-  const float cs = live ? colsum[row] : 0.f;
+  qa.prepare();
+  ga.prepare();
+  // rows g and g+8: m, 1/z, colsum; 0 past P, so that attn is 0
+  float mr[2], izr[2], csr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + gq + h * 8;
+    const size_t o = static_cast<size_t>(b) * P + p;
+    mr[h] = p < P ? m[o] : 0.f;
+    izr[h] = p < P ? 1.f / z[o] : 0.f;
+    csr[h] = p < P ? colsum[o] : 0.f;
+  }
+  float acc[NK][4];
+#pragma unroll
+  for (int nn = 0; nn < NK; ++nn) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nn][r] = 0.f;
+  }
 
   const float* kb = k + static_cast<size_t>(b) * K * C;
   const float* vb = v + static_cast<size_t>(b) * K * C;
+  const int tiles = (K + kItems - 1) / kItems;
+  auto stage = [&](int tile, int buf) {
+    const int j0 = tile * kItems;
+    const int n = min(kItems, K - j0);
+    stage_rows<CP>(smem + 2 * buf * kTile, kb + static_cast<size_t>(j0) * C,
+                   n, C);
+    stage_rows<CP>(smem + (2 * buf + 1) * kTile,
+                   vb + static_cast<size_t>(j0) * C, n, C);
+  };
 
-  for (int j0 = 0; j0 < K; j0 += kKeyTile) {
-    const int nk = min(kKeyTile, K - j0);
-    __syncthreads();  // the previous tile is no longer read
-    stage_keys<CP>(ks, vs, kb, vb, j0, nk, C);
+  stage(0, 0);
+  copy_commit();
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int buf = tile % 2;
+    if (tile + 1 < tiles) stage(tile + 1, buf ^ 1);
+    copy_commit();
+    copy_wait_all_but_one();
+    __syncthreads();  // the tile has landed; the last one is read
+    split_tile<CP>(smem + 2 * buf * kTile, khi, klo);
+    split_tile<CP>(smem + (2 * buf + 1) * kTile, vhi, vlo);
     __syncthreads();
-
-    for (int j = 0; j < nk; ++j) {
-      const float s = dot_row<CP>(ks + j * CP, qr);
-      const float attn = expf(s - mp) * iz;
-      const float ds = attn * (dot_row<CP>(vs + j * CP, gw) - cs);
-      axpy_row<CP>(ds, ks + j * CP, acc);
+    const int j0 = tile * kItems;
+#pragma unroll 1  // unrolled, the two halves of a tile spill at CP=64
+    for (int n0 = 0; n0 < kItems; n0 += 8 * NCH) {
+      float s[NCH][4], d[NCH][4];
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[ch][r] = d[ch][r] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t qh[4], ql[4], gh[4], gl[4];
+        qa.at(kk, qh, ql);
+        ga.at(kk, gh, gl);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          uint32_t bh[2], bl[2];
+          load_kn(khi, klo, kk, n0 + 8 * ch, gq, tq, bh, bl);
+          mma3(s[ch], qh, ql, bh, bl);
+          load_kn(vhi, vlo, kk, n0 + 8 * ch, gq, tq, bh, bl);
+          mma3(d[ch], gh, gl, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        // element r: anchor row g + 8(r/2), key t + 4(r%2) of the chunk
+        float ds[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int h = r / 2;
+          const bool live = j0 + n0 + 8 * ch + tq + 4 * (r % 2) < K;
+          const float attn = live ? __expf(s[ch][r] - mr[h]) * izr[h] : 0.f;
+          ds[r] = attn * (d[ch][r] - csr[h]);
+        }
+        // the A operand of dQ += ds K, k = the chunk's keys t, t+4
+        const float a[4] = {ds[0], ds[2], ds[1], ds[3]};
+        uint32_t ah[4], al[4];
+        split<4>(a, ah, al);
+#pragma unroll
+        for (int nn = 0; nn < NK; ++nn) {
+          uint32_t bh[2], bl[2];
+          load_nk(khi, klo, n0 + 8 * ch, nn, gq, tq, bh, bl);
+          mma3_add(acc[nn], ah, al, bh, bl);
+        }
+      }
     }
   }
-  store_rows<CP, kRowMajor>(dq, nullptr, nullptr, b, p0, C, P, smem, acc);
+
+  // element r of acc[nn]: anchor row g + 8(r/2), class 8nn + 2t + r%2
+#pragma unroll
+  for (int nn = 0; nn < NK; ++nn) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int p = p0 + gq + (r / 2) * 8;
+      const int c = 8 * nn + 2 * tq + r % 2;
+      if (p < P && c < C) {
+        const size_t o = kRowMajor
+                             ? (static_cast<size_t>(b) * P + p) * C + c
+                             : (static_cast<size_t>(b) * C + c) * P + p;
+        dq[o] = acc[nn][r];
+      }
+    }
+  }
 }
 
 template <int CP, bool kRowMajor>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ wz,
                 const float* __restrict__ g, const float* __restrict__ m,
                 const float* __restrict__ z,
                 const float* __restrict__ colsum, float* __restrict__ dk,
-                float* __restrict__ dv, int C, int P, int K) {
-  static_assert(CP % 4 == 0, "padded class count must be a multiple of 4");
-  __shared__ __align__(16) float qs[kAnchorTile * CP];
-  __shared__ __align__(16) float gs[kAnchorTile * CP];
-  __shared__ float ms[kAnchorTile];
-  __shared__ float izs[kAnchorTile];
-  __shared__ float css[kAnchorTile];
+                float* __restrict__ dv, int C, int P, int K, bool vec) {
+  static_assert(CP % 8 == 0 && kThreads % 32 == 0, "tile shapes");
+  constexpr int NK = CP / 8;
+  constexpr int NCH = kChunks<CP>;
+  constexpr int kTile = CP * kItems;
+  extern __shared__ __align__(16) float smem[];
+  // staged q, g tiles of buffer buf: smem + (2 buf + 0 or 1) kTile; their
+  // hi and lo tiles after them
+  uint32_t* qhi = reinterpret_cast<uint32_t*>(smem + 4 * kTile);
+  uint32_t* qlo = qhi + kTile;
+  uint32_t* ghi = qlo + kTile;
+  uint32_t* glo = ghi + kTile;
+  __shared__ __align__(16) float rs[2][3][kItems];  // m, z, colsum
 
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
   const int b = blockIdx.y;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = j < K;
-  const size_t key = (static_cast<size_t>(b) * K + j) * C;
+  const int j0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16;
+  const size_t kv = static_cast<size_t>(b) * K * C;
 
-  float kr[CP];
-  float vr[CP];
-  float dkr[CP];
-  float dvr[CP];
+  // this warp's rows of k and v*wz, zero past K and C
+  RowsA<NK, (CP <= 16)> ka, va;
 #pragma unroll
-  for (int c = 0; c < CP; ++c) {
-    const bool ok = live && c < C;
-    kr[c] = ok ? k[key + c] : 0.f;
-    vr[c] = ok ? v[key + c] : 0.f;
-    dkr[c] = 0.f;
-    dvr[c] = 0.f;
+  for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = j0 + gq + (r % 2) * 8;
+      const int c = 8 * kk + tq + (r / 2) * 4;
+      const bool ok = j < K && c < C;
+      const size_t o = kv + static_cast<size_t>(j) * C + c;
+      ka.x[kk][r] = ok ? k[o] : 0.f;
+      va.x[kk][r] = ok ? v[o] * wz[c] : 0.f;
+    }
+  }
+  ka.prepare();
+  va.prepare();
+  float dka[NK][4], dva[NK][4];
+#pragma unroll
+  for (int nn = 0; nn < NK; ++nn) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dka[nn][r] = dva[nn][r] = 0.f;
   }
 
-  for (int p0 = 0; p0 < P; p0 += kAnchorTile) {
-    const int np = min(kAnchorTile, P - p0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < kAnchorTile * CP; e += kThreads) {
-      int a, c;
-      size_t o;
-      if (kRowMajor) {
-        // element e = (a, c): consecutive threads read consecutive classes
-        a = e / CP;
-        c = e % CP;
-        o = (static_cast<size_t>(b) * P + p0 + a) * C + c;
-      } else {
-        // element e = (c, a): consecutive threads read consecutive anchors
-        c = e / kAnchorTile;
-        a = e % kAnchorTile;
-        o = (static_cast<size_t>(b) * C + c) * P + p0 + a;
-      }
-      const bool ok = a < np && c < C;
-      qs[a * CP + c] = ok ? q[o] : 0.f;
-      gs[a * CP + c] = ok ? g[o] * wz[c] : 0.f;
+  const float* qb = q + static_cast<size_t>(b) * C * P;
+  const float* gb = g + static_cast<size_t>(b) * C * P;
+  const int tiles = (P + kItems - 1) / kItems;
+  auto stage = [&](int tile, int buf) {
+    const int a0 = tile * kItems;
+    const int n = min(kItems, P - a0);
+    float* qt = smem + 2 * buf * kTile;
+    float* gt = smem + (2 * buf + 1) * kTile;
+    if (kRowMajor) {
+      stage_rows<CP>(qt, qb + static_cast<size_t>(a0) * C, n, C);
+      stage_rows<CP>(gt, gb + static_cast<size_t>(a0) * C, n, C);
+    } else {
+      stage_cols<CP>(qt, qb + a0, n, C, P, vec);
+      stage_cols<CP>(gt, gb + a0, n, C, P, vec);
     }
-    for (int a = threadIdx.x; a < kAnchorTile; a += kThreads) {
-      const bool ok = a < np;
-      const size_t o = static_cast<size_t>(b) * P + p0 + a;
-      ms[a] = ok ? m[o] : 0.f;
-      izs[a] = ok ? 1.f / z[o] : 0.f;
-      css[a] = ok ? colsum[o] : 0.f;
+    for (int e = threadIdx.x; e < 3 * kItems; e += kThreads) {
+      const int w = e / kItems;
+      const int i = e % kItems;
+      const float* src = (w == 0 ? m : w == 1 ? z : colsum) +
+                         static_cast<size_t>(b) * P + a0;
+      copy4(&rs[buf][w][i], i < n ? src + i : src, i < n);
     }
+  };
+
+  stage(0, 0);
+  copy_commit();
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int buf = tile % 2;
+    copy_wait_all();
+    // the tile has landed, and every warp is done with the last one, whose
+    // buffers (m, z and colsum are read until the end of its step) the
+    // next copy fills
     __syncthreads();
-
-    for (int a = 0; a < np; ++a) {
-      const float s = dot_row<CP>(qs + a * CP, kr);
-      const float attn = expf(s - ms[a]) * izs[a];
-      const float ds = attn * (dot_row<CP>(gs + a * CP, vr) - css[a]);
-      axpy_row<CP>(ds, qs + a * CP, dkr);
-      axpy_row<CP>(attn, gs + a * CP, dvr);
-    }
-  }
-
-  if (!live) return;
+    if (tile + 1 < tiles) stage(tile + 1, buf ^ 1);
+    copy_commit();
+    split_tile<CP>(smem + 2 * buf * kTile, qhi, qlo);
+    split_tile<CP>(smem + (2 * buf + 1) * kTile, ghi, glo);
+    __syncthreads();
+    const int a0 = tile * kItems;
+#pragma unroll 1  // unrolled, the two halves of a tile spill at CP=64
+    for (int n0 = 0; n0 < kItems; n0 += 8 * NCH) {
+      float s[NCH][4], d[NCH][4];
 #pragma unroll
-  for (int c = 0; c < CP; ++c) {
-    if (c < C) {
-      dk[key + c] = dkr[c];
-      dv[key + c] = dvr[c];
+      for (int ch = 0; ch < NCH; ++ch) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[ch][r] = d[ch][r] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        ka.at(kk, kh, kl);
+        va.at(kk, vh, vl);
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          uint32_t bh[2], bl[2];
+          load_kn(qhi, qlo, kk, n0 + 8 * ch, gq, tq, bh, bl);
+          mma3(s[ch], kh, kl, bh, bl);
+          load_kn(ghi, glo, kk, n0 + 8 * ch, gq, tq, bh, bl);
+          mma3(d[ch], vh, vl, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        // element r: key row g + 8(r/2), anchor t + 4(r%2) of the chunk
+        float at[4], ds[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = n0 + 8 * ch + tq + 4 * h;
+          const bool live = a0 + i < P;
+          const float mi = rs[buf][0][i];
+          const float izi = live ? __frcp_rn(rs[buf][1][i]) : 0.f;
+          const float csi = rs[buf][2][i];
+#pragma unroll
+          for (int row = 0; row < 2; ++row) {
+            const int r = 2 * row + h;
+            at[r] = live ? __expf(s[ch][r] - mi) * izi : 0.f;
+            ds[r] = at[r] * (d[ch][r] - csi);
+          }
+        }
+        // the A operands of dK += ds^T Q and dV += attn^T G, k = anchors
+        const float a_ds[4] = {ds[0], ds[2], ds[1], ds[3]};
+        const float a_at[4] = {at[0], at[2], at[1], at[3]};
+        uint32_t dh[4], dl[4], ah[4], al[4];
+        split<4>(a_ds, dh, dl);
+        split<4>(a_at, ah, al);
+#pragma unroll
+        for (int nn = 0; nn < NK; ++nn) {
+          uint32_t bh[2], bl[2];
+          load_nk(qhi, qlo, n0 + 8 * ch, nn, gq, tq, bh, bl);
+          mma3_add(dka[nn], dh, dl, bh, bl);
+          load_nk(ghi, glo, n0 + 8 * ch, nn, gq, tq, bh, bl);
+          mma3_add(dva[nn], ah, al, bh, bl);
+        }
+      }
     }
   }
+
+  // element r of dka[nn]: key row g + 8(r/2), class 8nn + 2t + r%2
+#pragma unroll
+  for (int nn = 0; nn < NK; ++nn) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = j0 + gq + (r / 2) * 8;
+      const int c = 8 * nn + 2 * tq + r % 2;
+      if (j < K && c < C) {
+        const size_t o = kv + static_cast<size_t>(j) * C + c;
+        dk[o] = dka[nn][r];
+        dv[o] = dva[nn][r] * wz[c];
+      }
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <int CP, bool kRowMajor>
@@ -279,14 +755,24 @@ int launch_grads(const float* q, const float* k, const float* v,
                  const float* wz, const float* g, const float* m,
                  const float* z, const float* colsum, float* dq, float* dk,
                  float* dv, int B, int C, int P, int K, cudaStream_t st) {
-  bwd_dq_kernel<CP, kRowMajor>
-      <<<dim3((P + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
-          q, k, v, wz, g, m, z, colsum, dq, C, P, K);
-  cudaError_t err = cudaGetLastError();
+  constexpr size_t bytes = kTileBytes<CP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_kernel<CP, kRowMajor>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_dq_kernel<CP, kRowMajor>
+      <<<dim3((P + kRows - 1) / kRows, B), kThreads, bytes, st>>>(
+          q, k, v, wz, g, m, z, colsum, dq, C, P, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(bwd_dkdv_kernel<CP, kRowMajor>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = !kRowMajor && P % 4 == 0 && aligned16(q) && aligned16(g);
   bwd_dkdv_kernel<CP, kRowMajor>
-      <<<dim3((K + kThreads - 1) / kThreads, B), kThreads, 0, st>>>(
-          q, k, v, wz, g, m, z, colsum, dk, dv, C, P, K);
+      <<<dim3((K + kRows - 1) / kRows, B), kThreads, bytes, st>>>(
+          q, k, v, wz, g, m, z, colsum, dk, dv, C, P, K, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

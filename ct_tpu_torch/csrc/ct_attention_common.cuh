@@ -1,10 +1,16 @@
-// Device functions shared by the Context-Transformer attention kernels
-// (ct_attention_cm.cu, ct_attention_cm_bwd.cu), float32, for Hopper.
+// Device functions shared by the one-thread-per-anchor Context-Transformer
+// attention kernels (ct_attention_cm.cu and the blockwise backward's stats
+// kernel in ct_attention_cm_bwd.cu), float32, for Hopper.
 //
-// Every kernel here runs one thread per anchor (or per key) with its row of
-// C values in registers, C a template parameter CP padded to 16 or 64 (15
-// source classes and 60 both fit; padded classes are zero and never
-// stored). Two layouts of the per-anchor tensors q, base, g, out, dq:
+// Those kernels run one thread per anchor with its row of C values in
+// registers, C a template parameter CP padded to 16 or 64 (15 source
+// classes and 60 both fit; padded classes are zero and never stored), and
+// sum every product on the FP32 pipes: a shared-memory float feeds one FMA,
+// so they are held by shared-memory issue. The backward's dq and dk/dv
+// kernels do not use these functions: they are tiled on the tensor cores
+// (3xTF32 mma.sync) with their own helpers, and the note of
+// ct_attention_cm_bwd.cu describes them. Two layouts of the per-anchor
+// tensors q, base, g, out, dq:
 //
 //   class-major [B,C,P]: a thread reads its column; consecutive threads
 //                        read consecutive anchors, coalesced;
@@ -26,11 +32,11 @@ namespace ct {
 
 constexpr int kThreads = 128;    // anchors (or keys) per block, one a thread
 constexpr int kKeyTile = 64;     // keys staged in shared memory at a time
-constexpr int kAnchorTile = 64;  // anchors staged in shared memory at a time
 constexpr int kHalf = 64;        // rows staged at a time by load/store_rows
 
-// sum_c row[c] * x[c] over a shared-memory row, in four partial sums: every
-// kernel sums a score in this order, so each sees the same s.
+// sum_c row[c] * x[c] over a shared-memory row, in four partial sums: the
+// forwards and the stats kernel sum a score in this order, so each sees the
+// same s (the tensor-core backward sums it in its own order).
 template <int CP>
 __device__ __forceinline__ float dot_row(const float* row,
                                          const float (&x)[CP]) {

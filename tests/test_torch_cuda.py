@@ -22,7 +22,12 @@ plain version on the same card, f32 with TF32 off:
 * ``ct_attention_cm_bwd`` (the blockwise backward) and the row-major
   ``ct_attention`` / ``ct_attention_bwd``: max |Δ| ≤ 1e-4 on the forward,
   ≤ 1e-4 · max |plain| per gradient (dwz too), and the autograd paths run
-  their kernels once each; ``ct_attention_variant`` (the bfloat16
+  their kernels once each; the three backwards also at the edges of the
+  tiles of their dq and dk/dv kernels (P and K below, at and one past a
+  tile, C = 16, 17 and 64, class-major rows not 16-byte aligned), the
+  flash one also over the 512 bench's 32,756 anchors, and two launches on
+  the same inputs give the same bits;
+  ``ct_attention_variant`` (the bfloat16
   exponential) within half of max |plain bf16 - plain f32|, what the
   bfloat16 rounding itself moves the output by, and further than that
   from the float32 kernel ``ct_attention``;
@@ -106,9 +111,22 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         pool2x2_relu_fwd(torch.zeros(1, 2, 5, 6, device=cuda))
 
 
+# the backward's tiles: dq owns 64 anchors and walks keys 32 at a time,
+# dk/dv owns 64 keys and walks anchors 32 at a time; CP=16 serves C <= 16,
+# CP=64 C = 17..64; class-major rows of P=1001 anchors are not 16-byte
+# aligned (4-byte copies), those of P=640 are (16-byte copies)
+TILE_EDGE_SHAPES = [(1, 16, 5, 2), (2, 17, 65, 65), (1, 64, 33, 33),
+                    (2, 16, 1001, 32), (1, 64, 640, 129)]
+
+# the 512 bench's P: dk and dv sum over 32,756 anchors, where an f32 sum
+# kept in the tensor cores' truncating accumulator leaves the band
+LONG_SUM_SHAPE = (1, 60, 32756, 129)
+
+
 @pytest.mark.parametrize("b,c,p,k", [(2, 15, 11620, 1858),
                                      (3, 60, 1001, 97), (2, 7, 130, 65),
-                                     (2, 64, 257, 3)])
+                                     (2, 64, 257, 3)] + TILE_EDGE_SHAPES
+                         + [LONG_SUM_SHAPE])
 def test_training_kernels_match_plain_versions(cuda, b, c, p, k):
     q, kk, v, base, wz = inputs(c * p + k, b, c, p, k, cuda)
     g = torch.randn(b, c, p, device=cuda, generator=torch.Generator(
@@ -338,7 +356,7 @@ def test_serving_model_on_the_card_matches_the_cpu(cuda):
 
 
 BLOCKWISE_SHAPES = [(2, 15, 11620, 1858), (3, 60, 1001, 97), (2, 7, 130, 65),
-                    (2, 64, 257, 3)]
+                    (2, 64, 257, 3)] + TILE_EDGE_SHAPES
 
 
 def assert_grads_close(grads, ref, tol=1e-4):
@@ -410,6 +428,28 @@ def test_rowmajor_autograd_runs_its_kernels(cuda):
         ct_attention_reference(*args).square().sum(), args)
     for a, r in zip(grads, ref):
         assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+@pytest.mark.parametrize("path", ["flash", "blockwise", "rowmajor"])
+def test_backward_kernels_are_deterministic(cuda, path):
+    # no float atomics: two launches on the same inputs give the same bits
+    q, kk, v, base, wz = inputs(9, 2, 60, 11620, 1858, cuda)
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(9))
+    if path == "flash":
+        _, delta, m, z = ct_attention_cm_stats(q, kk, v, base, wz)
+        colsum = (g * delta * wz[None, :, None]).sum(dim=1, keepdim=True)
+        run = lambda: ct_attention_cm_bwd_flash(q, kk, v, wz, g, m, z,
+                                                colsum)
+    elif path == "blockwise":
+        run = lambda: ct_attention_cm_bwd(q, kk, v, wz, g)
+    else:
+        qr, gr = q.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
+        run = lambda: ct_attention_bwd(qr, kk, v, wz, gr)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("b,c,p,k", [(2, 60, 11620, 1858), (3, 15, 1001, 97)])
