@@ -8,7 +8,8 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
 1. env     the card's name and power limit (nvidia-smi), CUDA and nvcc.
 2. build   every CUDA source of the port, built with nvcc from csrc/,
            one nvcc each, all started together; ptxas's registers and
-           spill bytes of every kernel, under its name.
+           spill bytes of every kernel instantiation, under its name, and
+           the spill bytes of each source in all.
 3. kernel  each kernel on the card against its plain PyTorch version, f32
            with TF32 off: ``ct_attention_cm`` (eval forward) at the eval
            path's shapes (B=8, C=15), at the transfer width (C=60) and at
@@ -41,6 +42,14 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            ``ct_attention_variant`` (the bfloat16 exponential) at the
            same shapes within half of the bfloat16 rounding's own effect
            and further than that from ``ct_attention``, timed at B=128;
+           every forward held to give the same bits on a second launch
+           and reported with both bounds (the FP32 pipes' and the tensor
+           cores' for its 3xTF32 products, 2xTF32 for the bfloat16
+           variant's P·V); one profiled blockwise backward at B=64 and
+           C=15 and 60 (and one row-major one at each timed width)
+           splits its time into ``bwd_stats_kernel``,
+           ``dwz_reduce_kernel``, ``bwd_dq_kernel`` and
+           ``bwd_dkdv_kernel``;
            ``bias_relu_bwd`` (mask bit for bit) at [8, 64, 300, 300] and a
            ragged shape, timed at [64, 64, 300, 300] beside
            ``threshold_backward`` and the channel sum.
@@ -91,6 +100,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -199,8 +209,10 @@ def phase_build() -> dict:
         ptxas = [ln.strip() for ln in res["log"].splitlines()
                  if "Function properties for" in ln or "registers" in ln
                  or "spill" in ln]
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                            res["log"])
         out[name] = {"seconds": res["seconds"], "built": res["built"],
-                     "ptxas": ptxas}
+                     "spill_bytes": sum(map(int, spills)), "ptxas": ptxas}
     return out
 
 
@@ -225,19 +237,17 @@ def attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
     with torch.inference_mode():
         out = ct_attention_cm(q, k, v, base, wz)
         ref = ct_attention_reference_cm(q, k, v, base, wz)
+        deterministic = same_bits(lambda: (ct_attention_cm(q, k, v, base,
+                                                           wz),))
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         res = {"B": b, "C": c, "P": p, "K": kk, "max_abs_err": err,
-               "tol": KERNEL_TOL}
-        if not err <= KERNEL_TOL:
+               "tol": KERNEL_TOL, "deterministic": deterministic}
+        if not (err <= KERNEL_TOL and deterministic):
             raise AssertionError(f"ct_attention_cm disagrees with its plain "
                                  f"version: {res}")
         if not time_it:
             return res
-        flops = 4 * b * p * kk * c
-        nbytes = 4 * (3 * b * c * p + 2 * b * kk * c + c)
-        ops_ms = flops / PEAK_F32_FLOPS * 1e3
-        bytes_ms = nbytes / PEAK_BYTES * 1e3
         # yardstick: one library call of the same attention on the
         # row-major layout ([B, 1, P, C] queries), scores unscaled
         q_rm = q.transpose(1, 2).contiguous()[:, None]
@@ -248,12 +258,11 @@ def attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
             ms=cuda_ms(lambda: ct_attention_cm(q, k, v, base, wz), 20),
             plain_ms=cuda_ms(
                 lambda: ct_attention_reference_cm(q, k, v, base, wz), 5),
-            bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 q_rm, k4, v4, scale=1.0), 20),
             library_max_abs_err=(lib_out - ref).abs().max().item(),
-        )
+            **tc_bound(4 * b * p * kk * c,
+                       4 * (3 * b * c * p + 2 * b * kk * c + c)))
     return res
 
 
@@ -376,14 +385,14 @@ def bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def tc_bound(flops: float, nbytes: float) -> dict:
-    """The bounds of a backward whose products run on the tensor cores in
+def tc_bound(flops: float, nbytes: float, tc_factor: float = 3) -> dict:
+    """The bounds of a kernel whose products run on the tensor cores in
     3xTF32: on the FP32 pipes (``flops`` over the f32 peak) and on the
-    tensor cores (3 × ``flops`` over the TF32 peak), each against the bytes
-    over the memory rate. ``bound_ms`` is the lesser, ``bound_pipe`` names
-    it."""
+    tensor cores (``tc_factor`` × ``flops``, 3 for three TF32 products
+    each, over the TF32 peak), each against the bytes over the memory
+    rate. ``bound_ms`` is the lesser, ``bound_pipe`` names it."""
     fp32 = bound(flops, nbytes)
-    ops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    ops_ms = tc_factor * flops / PEAK_TF32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     tc_ms = max(ops_ms, bytes_ms)
     if tc_ms <= fp32["bound_ms"]:
@@ -458,6 +467,8 @@ def training_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
     # them is 5.5 GB
     with torch.no_grad():
         out, delta, m, z = ct_attention_cm_stats(q, k, v, base, wz)
+        stats_deterministic = same_bits(lambda: ct_attention_cm_stats(
+            q, k, v, base, wz))
         ref = ct_attention_cm_stats_reference(q, k, v, base, wz)
         fwd_err = {name: (a - r).abs().max().item() for name, a, r in
                    zip(("out", "delta", "m"), (out, delta, m), ref)}
@@ -485,11 +496,13 @@ def training_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
     torch.cuda.synchronize()
     res = {"B": b, "C": c, "P": p, "K": kk,
            "stats_max_abs_err": max(fwd_err.values()), "stats_err": fwd_err,
-           "stats_tol": KERNEL_TOL, "bwd_max_abs_err": max(errs),
+           "stats_tol": KERNEL_TOL, "stats_deterministic": stats_deterministic,
+           "bwd_max_abs_err": max(errs),
            "bwd_rel_err": bwd_rel, "bwd_tol": BWD_TOL,
            "bwd_deterministic": deterministic}
     if not (max(fwd_err.values()) <= KERNEL_TOL
-            and max(bwd_rel.values()) <= BWD_TOL and deterministic):
+            and max(bwd_rel.values()) <= BWD_TOL and deterministic
+            and stats_deterministic):
         raise AssertionError(f"training attention kernels disagree with "
                              f"their plain versions: {res}")
     if not time_it:
@@ -507,8 +520,8 @@ def training_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
                 q, k, v, base, wz), 3, warmup=1),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 q_rm, k4, v4, scale=1.0), 10),
-            **bound(4 * b * p * kk * c,
-                    4 * (4 * b * c * p + 2 * b * kk * c + c + 2 * b * p)))
+            **tc_bound(4 * b * p * kk * c,
+                       4 * (4 * b * c * p + 2 * b * kk * c + c + 2 * b * p)))
         res["bwd"] = dict(
             ms=cuda_ms(lambda: ct_attention_cm_bwd_flash(
                 q, k, v, wz, g, m, z, colsum), 5),
@@ -568,7 +581,39 @@ def blockwise_case(rng, b, c, p, kk, time_it: bool) -> dict:
         res["library_ms"] = sdpa_backward_ms(
             q.transpose(1, 2), k, v, (g * wz[None, :, None]).transpose(1, 2),
             5)
+        with torch.no_grad():
+            res["kernels_ms"] = kernel_split_ms(
+                lambda: ct_attention_cm_bwd(q, k, v, wz, g), BLOCKWISE_KERNELS)
     return res
+
+
+# the blockwise backward's kernels, by the names the profiler gives them
+BLOCKWISE_KERNELS = ("bwd_stats_kernel", "dwz_reduce_kernel", "bwd_dq_kernel",
+                     "bwd_dkdv_kernel")
+
+
+def kernel_split_ms(fn, names) -> dict:
+    """Device ms of each kernel of one call ``fn()`` under torch.profiler,
+    by the first of ``names`` that its name holds; what matches none goes
+    under "other". One warm-up call first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys((*names, "other"), 0.0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = next((n for n in names if n in e.key), "other")
+        out[key] += e.device_time_total / 1e3
+    if not all(out[n] > 0 for n in names):
+        raise AssertionError(f"the profiler saw no time for a kernel: {out}")
+    return out
 
 
 def rowmajor_case(rng, b, c, p, kk, time_fwd: int = 0,
@@ -593,6 +638,8 @@ def rowmajor_case(rng, b, c, p, kk, time_fwd: int = 0,
     with torch.no_grad():
         err = (ct_attention(q, k, v, base, wz)
                - ct_attention_reference(q, k, v, base, wz)).abs().max().item()
+        fwd_deterministic = same_bits(lambda: (ct_attention(q, k, v, base,
+                                                            wz),))
         grads = ct_attention_bwd(q, k, v, wz, g)
         deterministic = same_bits(lambda: ct_attention_bwd(q, k, v, wz, g))
         plain = ct_attention_bwd_reference(q, k, v, wz, g)
@@ -603,9 +650,10 @@ def rowmajor_case(rng, b, c, p, kk, time_fwd: int = 0,
     torch.cuda.synchronize()
     res = {"B": b, "C": c, "P": p, "K": kk, "fwd_max_abs_err": err,
            "fwd_tol": KERNEL_TOL, "bwd_rel_err": rel, "bwd_tol": BWD_TOL,
-           "bwd_max_abs_err": bwd_err, "bwd_deterministic": deterministic}
+           "bwd_max_abs_err": bwd_err, "bwd_deterministic": deterministic,
+           "fwd_deterministic": fwd_deterministic}
     if not (err <= KERNEL_TOL and max(rel.values()) <= BWD_TOL
-            and deterministic):
+            and deterministic and fwd_deterministic):
         raise AssertionError(f"the row-major kernels disagree with their "
                              f"plain versions: {res}")
     with torch.no_grad():
@@ -620,8 +668,8 @@ def rowmajor_case(rng, b, c, p, kk, time_fwd: int = 0,
                     q, k, v, base, wz), 3, warmup=1),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[:, None], k[:, None], v[:, None], scale=1.0), 10),
-                **bound(4 * n * p * kk * c,
-                        4 * (3 * n * p * c + 2 * n * kk * c + c)))
+                **tc_bound(4 * n * p * kk * c,
+                           4 * (3 * n * p * c + 2 * n * kk * c + c)))
         if time_bwd:
             torch.cuda.empty_cache()
             q, k, v, base, wz, g = inputs(time_bwd)
@@ -635,6 +683,9 @@ def rowmajor_case(rng, b, c, p, kk, time_fwd: int = 0,
                            4 * (3 * n * p * c + 4 * n * kk * c + 2 * c)))
     if time_bwd:
         res["bwd"]["library_ms"] = sdpa_backward_ms(q, k, v, g * wz, 5)
+        with torch.no_grad():
+            res["bwd"]["kernels_ms"] = kernel_split_ms(
+                lambda: ct_attention_bwd(q, k, v, wz, g), BLOCKWISE_KERNELS)
     return res
 
 
@@ -665,11 +716,14 @@ def variant_case(rng, b, c, p, kk, time_it: bool) -> dict:
                      ).abs().max().item()
         err = (out - plain).abs().max().item()
         from_f32 = (out - ct_attention(q, k, v, base, wz)).abs().max().item()
+        deterministic = same_bits(lambda: (ct_attention_variant(
+            q, k, v, base, wz),))
         del plain
         torch.cuda.synchronize()
         res = {"B": b, "C": c, "P": p, "K": kk, "max_abs_err": err,
-               "tol": tol, "max_abs_from_f32_kernel": from_f32}
-        if not (err <= tol < from_f32):
+               "tol": tol, "max_abs_from_f32_kernel": from_f32,
+               "deterministic": deterministic}
+        if not (err <= tol < from_f32 and deterministic):
             raise AssertionError(f"ct_attention_variant disagrees with its "
                                  f"plain version or ignores its bfloat16 "
                                  f"exponential: {res}")
@@ -682,8 +736,14 @@ def variant_case(rng, b, c, p, kk, time_it: bool) -> dict:
                     q, k, v, base, wz), 3, warmup=1),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[:, None], k[:, None], v[:, None], scale=1.0), 10),
-                **bound(4 * b * p * kk * c,
-                        4 * (3 * b * p * c + 2 * b * kk * c + c)))
+                # the function's 4·BPKC flops; on the tensor cores one
+                # score product in 3xTF32 and its P·V in 2xTF32 (the bf16
+                # weights are exact in TF32): 3·2 + 2·2 = 10·BPKC, 2.5 ×
+                # the flops. The kernel's second walk recomputes the
+                # scores; that is its own cost, not the function's.
+                **tc_bound(4 * b * p * kk * c,
+                           4 * (3 * b * p * c + 2 * b * kk * c + c),
+                           tc_factor=2.5))
     return res
 
 
@@ -784,7 +844,7 @@ def phase_kernel(seed: int) -> dict:
         # the eval path's shapes: batch 8, incre (C=15), P=11620, K=1858
         "incre": attention_case(rng, 8, 15, 11620, 1858, True),
         "transfer": attention_case(rng, 8, 60, 11620, 1858, True),
-        # P not a multiple of the 128-anchor tile, K not of the 64-key tile
+        # P not a multiple of the 64-anchor block, K not of the 32-key tile
         "ragged": attention_case(rng, 3, 60, 1001, 97, False),
         "ragged_narrow": attention_case(rng, 2, 7, 130, 65, False),
         # the training kernels: checked at batch 8, timed at batch 64
@@ -1382,10 +1442,18 @@ def kernels_line(results: dict) -> list:
         return {f"{k}_c{c}": t[k]
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
-    # the backwards on the tensor cores: both bounds, and each at the other
-    # width too (rows 3 and 4 are timed on the train step's C=15, row 5's
-    # backward on the bench's C=60)
+    # the attention kernels run on the tensor cores: both bounds, and each
+    # at the other width too (rows 1-4 are timed at the eval or train
+    # step's C=15, rows 5 and 10 at the benches' C=60; row 5's backward also
+    # at C=15)
     extra = {
+        "ct_attention_cm": {
+            **pipes(incre), **at_width(kern["transfer"], 60)},
+        "ct_attention_cm_stats": {
+            **pipes(timed["stats"]),
+            **at_width(kern["train_timed_transfer"]["stats"], 60)},
+        "ct_attention": pipes(rowmajor["fwd"]),
+        "ct_attention_variant": pipes(kern["variant_timed"]),
         "ct_attention_cm_bwd_flash": {
             **pipes(timed["bwd"]),
             **at_width(kern["train_timed_transfer"]["bwd"], 60)},

@@ -19,68 +19,131 @@
 // online softmax ends holding exactly its final max and denominator, so
 // these cost three stores.
 //
-// What bounds it on the H100: arithmetic. Per (anchor, key) it does C FMAs
-// for the score, C FMAs for the weighted value sum and one exponential,
-// 4*B*P*K*C flops in all, while it moves only q, base and out once each plus
-// k and v (K*C floats per image, which stay in L2). This first version runs
-// on the FP32 pipes, not the tensor cores.
+// What bounds it on the H100: arithmetic. Per (anchor, key) the function
+// needs C multiply-adds for the score, C for the weighted value sum and one
+// exponential, 4*B*P*K*C flops in all, while it moves only q, base and out
+// once each plus k and v (K*C floats per image, which stay in L2). Its two
+// products run on the tensor cores in 3xTF32 (ct_attention_mma.cuh), three
+// TF32 products each: 12*B*P*K*C tensor flops over 495 TFLOP/s, or
+// 4*B*P*K*C over the FP32 pipes' 67. The bfloat16 variant's weights are
+// exact in TF32, so its P V takes two products: 3*2 + 2*2 = 10*B*P*K*C
+// tensor flops. It walks the keys twice (the max first, then the weights),
+// so it computes the scores again: 6*B*P*K*C more tensor flops, a cost of
+// this design and not of the function, which the bounds leave out.
+// PERF.md §6 rows 1, 2, 5 (forward) and 10 give the times against both
+// bounds.
 //
-// Design: one thread per anchor, 128 anchors per block, grid (P tiles, B).
-// Each thread keeps its query row and C accumulators in registers (C padded
-// to 16 or 64) and walks K in tiles of 64 keys staged in shared memory; all
-// threads of a warp read the same key row, a broadcast with no bank
-// conflicts. The softmax is online (ct_attention_common.cuh, softmax_sum),
-// so the [K,P] affinity never exists in memory. Class-major loads and
-// stores are coalesced along P; row-major ones go through shared memory
-// (load_rows, store_rows), in the key tiles' space before and after the
-// walk. Ragged P (threads past the end compute on zeros and store nothing)
-// and ragged K (the last tile is short) are masked. The bfloat16-exponent
-// variant takes two passes over K, the first for the row max, so that each
-// weight is rounded as the plain version rounds it.
+// Design: a block owns 64 anchors of one image, 16 a warp, and walks the
+// keys in tiles of 32 (attend, ct_attention_mma.cuh): per group of 8-key
+// chunks each warp computes S = Q K^T [16 x 8 a chunk] on the tensor cores
+// from its anchors' q fragments and the staged k tile, in the dq kernel's
+// order, takes the online softmax on the accumulator fragments, and feeds
+// the weights straight back as the A operand of O += P V. Only the [64, C]
+// rows of q and out and the key tiles ever exist; the [K,P] affinity never
+// does. The epilogue stages delta = O / z in shared memory, so that the
+// block's loads of base and stores of out (and delta) run along the
+// anchors (class-major) or along the rows' contiguous span (row-major).
+// Ragged P (rows past P compute on zeros and store nothing), ragged K
+// (the last tile is zero-filled and its dead keys masked) and padded
+// classes (zero, never stored) are handled in the walk.
 
-#include "ct_attention_common.cuh"
+#include "ct_attention_mma.cuh"
 
 namespace {
 
 using namespace ct;
 
+// shared-memory stride of a class in the class-major epilogue's stage:
+// 2t*68 + g hits 32 distinct banks for a warp's fragment writes
+constexpr int kStageStride = kRows + 4;
+
+// Two blocks an SM (up to 255 registers: the f32 walk takes about 210 at
+// CP=64 and spills within 168), three for the bf16 variant, which fits in
+// 168 without spilling and runs 11% faster so on an H100 (PERF.md §6).
 template <int CP, bool kStats, bool kRowMajor, bool kExpBf16>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kExpBf16 ? 3 : 2)
 ct_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ base,
                     const float* __restrict__ wz, float* __restrict__ out,
                     float* __restrict__ delta, float* __restrict__ m_out,
                     float* __restrict__ z_out, int C, int P, int K) {
-  static_assert(CP % 4 == 0, "padded class count must be a multiple of 4");
   static_assert(!(kStats && kRowMajor), "statistics are class-major only");
-  // the key and value tiles; row-major rows are staged in the same space
-  __shared__ __align__(16) float smem[2 * kKeyTile * CP];
-  float* ks = smem;
-  float* vs = smem + kKeyTile * CP;
-
+  static_assert(CP * kStageStride <= kWalkFloats<CP> &&
+                    kRows * (CP + 1) <= kWalkFloats<CP>,
+                "the epilogue's stage fits in the walk's shared memory");
+  __shared__ __align__(16) float smem[kWalkFloats<CP>];
+  constexpr int NK = CP / 8;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int gq = lane / 4, tq = lane % 4;
   const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kThreads;
-  const int p = p0 + threadIdx.x;
+  const int p0 = blockIdx.x * kRows;
 
-  float qr[CP];
-  load_rows<CP, kRowMajor>(q, b, p0, C, P, smem, qr);
-  float acc[CP];
-  float m, l;
-  softmax_sum<CP, kExpBf16>(qr, k + static_cast<size_t>(b) * K * C,
-                            v + static_cast<size_t>(b) * K * C, C, K, ks, vs,
-                            acc, m, l);
+  float o[NK][4], m[2], l[2];
+  attend<CP, kRowMajor, kExpBf16>(q, k, v, b, p0 + warp * 16, C, P, K, smem,
+                                  o, m, l);
 
-  const float inv = 1.f / l;
+  // rows g and g+8 of this warp: delta = O / z into the stage
+  __syncthreads();  // the key tiles are no longer read
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
-  for (int c = 0; c < CP; ++c) acc[c] *= inv;
-  store_rows<CP, kRowMajor>(out, base, wz, b, p0, C, P, smem, acc);
-  if (kStats && p < P) {
-    store_rows<CP, false>(delta, nullptr, nullptr, b, p0, C, P, smem, acc);
-    const size_t s_at = static_cast<size_t>(b) * P + p;
-    m_out[s_at] = m;
-    z_out[s_at] = l;
+  for (int nn = 0; nn < NK; ++nn) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = warp * 16 + gq + (r / 2) * 8;
+      const int c = 8 * nn + 2 * tq + r % 2;
+      const float d = o[nn][r] * inv[r / 2];
+      if (kRowMajor) {
+        smem[row * (CP + 1) + c] = d;
+      } else {
+        smem[c * kStageStride + row] = d;
+      }
+    }
   }
+  if (kStats && tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + warp * 16 + gq + h * 8;
+      if (p < P) {
+        const size_t at = static_cast<size_t>(b) * P + p;
+        m_out[at] = m[h];
+        z_out[at] = l[h];
+      }
+    }
+  }
+  __syncthreads();
+  const int rows = min(kRows, P - p0);
+  if (kRowMajor) {
+    const size_t first = (static_cast<size_t>(b) * P + p0) * C;
+    for (int e = threadIdx.x; e < rows * C; e += kThreads) {
+      const int c = e % C;
+      const float d = smem[(e / C) * (CP + 1) + c];
+      out[first + e] = base[first + e] + wz[c] * d;
+    }
+  } else {
+    for (int e = threadIdx.x; e < C * kRows; e += kThreads) {
+      const int c = e / kRows;
+      const int i = e % kRows;
+      if (i < rows) {
+        const size_t at = (static_cast<size_t>(b) * C + c) * P + p0 + i;
+        const float d = smem[c * kStageStride + i];
+        out[at] = base[at] + wz[c] * d;
+        if (kStats) delta[at] = d;
+      }
+    }
+  }
+}
+
+template <int CP, bool kStats, bool kRowMajor, bool kExpBf16>
+int launch_cp(const float* q, const float* k, const float* v,
+              const float* base, const float* wz, float* out, float* delta,
+              float* m, float* z, int B, int C, int P, int K,
+              cudaStream_t st) {
+  ct_attention_kernel<CP, kStats, kRowMajor, kExpBf16>
+      <<<dim3((P + kRows - 1) / kRows, B), kThreads, 0, st>>>(
+          q, k, v, base, wz, out, delta, m, z, C, P, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kStats, bool kRowMajor, bool kExpBf16>
@@ -90,7 +153,6 @@ int launch(const void* q, const void* k, const void* v, const void* base,
   if (B <= 0 || C <= 0 || C > 64 || P <= 0 || K <= 0 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((P + kThreads - 1) / kThreads, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -102,15 +164,11 @@ int launch(const void* q, const void* k, const void* v, const void* base,
   float* mf = static_cast<float*>(m);
   float* zf = static_cast<float*>(z);
   if (C <= 16) {
-    ct_attention_kernel<16, kStats, kRowMajor, kExpBf16>
-        <<<grid, kThreads, 0, st>>>(qf, kf, vf, bf, wf, of, df, mf, zf, C, P,
-                                    K);
-  } else {
-    ct_attention_kernel<64, kStats, kRowMajor, kExpBf16>
-        <<<grid, kThreads, 0, st>>>(qf, kf, vf, bf, wf, of, df, mf, zf, C, P,
-                                    K);
+    return launch_cp<16, kStats, kRowMajor, kExpBf16>(
+        qf, kf, vf, bf, wf, of, df, mf, zf, B, C, P, K, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_cp<64, kStats, kRowMajor, kExpBf16>(
+      qf, kf, vf, bf, wf, of, df, mf, zf, B, C, P, K, st);
 }
 
 }  // namespace

@@ -24,19 +24,27 @@
 //
 // What bounds it on the H100: arithmetic. The flash backward needs
 // 10*B*P*K*C flops (scores, dattn, dq, dk, dv), the blockwise one
-// 12*B*P*K*C; two kernels that each recompute the scores and dattn do
-// 14*B*P*K*C. On the FP32 pipes (67 TFLOP/s) that is 17 ms at B=64, C=60,
-// P=11,620, K=1,858; as three TF32 products on the tensor cores (495
-// TFLOP/s, the data sheet's dense rate) 7 ms, though mma.sync, unlike
-// wgmma, may not reach that rate. The bytes (q, g, dq and the small k, v,
-// dk, dv) are a few hundred MB, a tenth of that.
+// 12*B*P*K*C (its stats pass adds the forward's scores and P V); two
+// kernels that each recompute the scores and dattn do 14*B*P*K*C. On the
+// FP32 pipes (67 TFLOP/s) that is 17 ms at B=64, C=60, P=11,620, K=1,858;
+// as three TF32 products on the tensor cores (495 TFLOP/s, the data
+// sheet's dense rate) 7 ms, though mma.sync, unlike wgmma, may not reach
+// that rate. The bytes (q, g, dq and the small k, v, dk, dv) are a few
+// hundred MB, a tenth of that. PERF.md §6 rows 3, 4 and 5 give the times.
 //
 // Design. No float atomics, so the result does not depend on the order in
-// which blocks run, and two launches give the same bits.
-//  0. (blockwise only) stats: one thread per anchor, as the forward
-//     (softmax_sum), recomputes m, z and delta, then writes m, z and
-//     colsum, and each block's partial sum of g*delta over its 128 anchors
-//     (warp shuffles, then the four warps in order); dwz_reduce sums the
+// which blocks run, and two launches give the same bits. Every product is
+// a warp-wide mma.sync m16n8k8 in 3xTF32 on cp.async-staged tiles, with the
+// helpers and the forward's walk of ct_attention_mma.cuh (its note gives
+// the split, the fragment layouts and the item order that lets an
+// accumulator serve as the next product's A operand).
+//  0. (blockwise only) stats: the forward's walk (attend: 64 anchors a
+//     block, 16 a warp, keys in tiles of 32, the scores, the online
+//     softmax and P V on the tensor cores) recomputes m, z and delta; the
+//     epilogue holds g in the accumulator layout and writes m, z, colsum
+//     (summed over the lane quad with two shuffles) and the block's partial
+//     sums of g*delta per class (a lane's two rows, the 8 row groups of a
+//     warp by shuffles, then the four warps in order); dwz_reduce sums the
 //     partials of every block in a fixed order, one block per class.
 //  1. dq: a block owns 64 anchors of one image, 16 per warp, and walks the
 //     keys in tiles of 32. Per group of 8-key chunks a warp computes the
@@ -45,121 +53,110 @@
 //  2. dk, dv: a block owns 64 keys, 16 per warp, and walks the anchors in
 //     tiles of 32: S^T = K Q^T and dP^T = (V wz) G^T, then dK += ds^T Q and
 //     dV += attn^T G (scaled by wz once, at the end).
-// Every product is a warp-wide mma.sync m16n8k8 on the tensor cores in
-// 3xTF32: each operand a is split as big + small and a*b = small*big +
-// big*small + big*big, accumulated in f32. The tensor cores read a TF32
-// operand from the top 19 bits of its register, so big = a + half a TF32
-// step (read: a rounded to nearest, ties away, as cvt.rna.tf32 rounds) and
-// small = a - tf32(big) (read: truncated), three integer and float
-// instructions where two cvt.rna take eight. That keeps about 21 of
-// float32's 24 mantissa bits, where a single TF32 product keeps 11: scores
-// reach |s| ~ 30 at C=60, so one TF32 pass would move attn by ~1%, far
-// outside the backward's band (1e-4 of each output's largest entry). The
-// accumulator of S (C layout: row g, columns 2t and 2t+1 of a lane's quad)
-// becomes the A operand of the next product (rows g, g+8, columns t and
-// t+4) without a shuffle or a pass through shared memory: the B fragments
-// of the score products read the items (keys, or anchors) in the order
-// pi(n) = 4(n&1) + n/2, so that a lane's accumulator columns 2t, 2t+1 hold
-// items t and t+4, the very k indices its A fragment needs.
 // The operand rows a warp owns (q and g*wz in dq, k and v*wz in dk/dv) and
 // its accumulators stay in registers; at CP=64 the rows stay in float32
 // and are split where they are used (pinned there, so that the compiler
 // does not hoist 128 registers of splits out of the loop), at CP=16 they
-// are split once. The tiles of the other side are staged in shared memory
-// with cp.async, double-buffered: class-major per-class rows of 32 anchors
-// in 16-byte copies where P and the base are 16-byte aligned, else 4-byte
-// copies (row-major rows and k/v at C=15 are 60 bytes; P=1001 gives
-// unaligned class rows), zero-filled past P, K and C. Once a tile lands the
-// block splits it into hi and lo tiles, so that each float is split once
-// and not by each of the four warps. dk/dv reads the tile's m, z and
-// colsum from their staging buffer until the end of its step, so it
-// issues the next tile's copies only after the barrier that follows the
-// step (dq, whose staged tiles are read only before its second barrier,
-// issues them before waiting for the current tile). A tile is [CP][32]
-// floats, its items XOR-swizzled by class so that the 16-byte copies and
-// both fragment loads are free of bank conflicts. The long sums (dq over
-// the keys, dk and dv over the anchors) take each step's product from a
-// fresh accumulator and add it with a rounded f32 add (mma3_add): the
-// tensor cores truncate their accumulator at every step, a bias that grows
-// with the step count.
+// are split once. The tiles of the other side are staged double-buffered:
+// class-major per-class rows of 32 anchors in 16-byte copies where P and
+// the base are 16-byte aligned, else 4-byte copies (row-major rows and k/v
+// at C=15 are 60 bytes; P=1001 gives unaligned class rows), zero-filled
+// past P, K and C. dk/dv reads the tile's m, z and colsum from their
+// staging buffer until the end of its step, so it issues the next tile's
+// copies only after the barrier that follows the step (dq, whose staged
+// tiles are read only before its second barrier, issues them before
+// waiting for the current tile). The long sums (dq over the keys, dk and
+// dv over the anchors) take each step's product from a fresh accumulator
+// and add it with a rounded f32 add (mma3_add).
 // What the card showed (PERF.md): with cvt.rna the splits were more
 // than half of the loop's instructions; neither a third block per SM nor
 // separate accumulators for the small terms moved the time.
 // Ragged P and K are masked after the exponential, as the JAX kernel masks
 // them: a padded anchor's or key's attn is 0, and it is never stored.
-// Padded classes are zero. The scores are no longer the forward's bit for
-// bit: the tensor cores sum s in another order than the forward's dot_row,
-// so s differs from the forward's by f32 rounding, well inside the bands;
-// the exponential is __expf (ex2.approx of s*log2 e), within a few ulp of
-// expf.
+// Padded classes are zero. The scores are those of the forward's walk, bit
+// for bit (the same routine in dq's class-step order; dk/dv, with k as the
+// A operand, sums them in another order, within f32 rounding); the
+// exponential is __expf (ex2.approx of s*log2 e), within a few ulp of expf.
 
-#include <stdint.h>
-
-#include "ct_attention_common.cuh"
+#include "ct_attention_mma.cuh"
 
 namespace {
 
 using namespace ct;
 
 template <int CP, bool kRowMajor>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 bwd_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ wz,
                  const float* __restrict__ g, float* __restrict__ m_out,
                  float* __restrict__ z_out, float* __restrict__ colsum_out,
                  float* __restrict__ dwz_part, int C, int P, int K) {
-  static_assert(CP % 4 == 0, "padded class count must be a multiple of 4");
-  __shared__ __align__(16) float smem[2 * kKeyTile * CP];
-  float* ks = smem;
-  float* vs = smem + kKeyTile * CP;
-
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kThreads;
-  const int p = p0 + threadIdx.x;
-
-  float qr[CP];
-  float gr[CP];
-  load_rows<CP, kRowMajor>(q, b, p0, C, P, smem, qr);
-  load_rows<CP, kRowMajor>(g, b, p0, C, P, smem, gr);
-  float acc[CP];
-  float m, l;
-  softmax_sum<CP, false>(qr, k + static_cast<size_t>(b) * K * C,
-                         v + static_cast<size_t>(b) * K * C, C, K, ks, vs,
-                         acc, m, l);
-
-  // delta = acc / l; a thread past P holds g = 0, so it adds nothing
-  const float inv = 1.f / l;
-  float cs = 0.f;
-#pragma unroll
-  for (int c = 0; c < CP; ++c) {
-    acc[c] = gr[c] * (acc[c] * inv);  // g * delta
-    if (c < C) cs = fmaf(acc[c], wz[c], cs);
-  }
-  if (p < P) {
-    const size_t at = static_cast<size_t>(b) * P + p;
-    m_out[at] = m;
-    z_out[at] = l;
-    colsum_out[at] = cs;
-  }
-
-  // this block's sum of g * delta over its anchors, per class
-  float* red = smem;  // [kThreads / 32][CP]
+  __shared__ __align__(16) float smem[kWalkFloats<CP>];
+  constexpr int NK = CP / 8;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  __syncthreads();  // the key tiles are no longer read
+  const int gq = lane / 4, tq = lane % 4;
+  const int b = blockIdx.y;
+  const int pw = blockIdx.x * kRows + warp * 16;
+
+  float o[NK][4], m[2], l[2];
+  attend<CP, kRowMajor, false>(q, k, v, b, pw, C, P, K, smem, o, m, l);
+
+  // g * delta in the accumulator layout (row g + 8(r/2), class 8nn + 2t +
+  // r%2): colsum per row, and per class this lane's two rows; a row past P
+  // or a class past C holds g = 0, so it adds nothing
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  float cs[2] = {0.f, 0.f};
+  float col[NK][2];
 #pragma unroll
-  for (int c = 0; c < CP; ++c) {
-    float x = acc[c];
+  for (int nn = 0; nn < NK; ++nn) {
+    col[nn][0] = col[nn][1] = 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      x += __shfl_down_sync(0xffffffffu, x, off);
+    for (int r = 0; r < 4; ++r) {
+      const int p = pw + gq + (r / 2) * 8;
+      const int c = 8 * nn + 2 * tq + r % 2;
+      const bool ok = p < P && c < C;
+      const size_t at = kRowMajor
+                            ? (static_cast<size_t>(b) * P + p) * C + c
+                            : (static_cast<size_t>(b) * C + c) * P + p;
+      const float gd = ok ? g[at] * (o[nn][r] * inv[r / 2]) : 0.f;
+      if (ok) cs[r / 2] = fmaf(gd, wz[c], cs[r / 2]);
+      col[nn][r % 2] += gd;
     }
-    if (lane == 0) red[warp * CP + c] = x;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 1);
+    cs[h] += __shfl_xor_sync(0xffffffffu, cs[h], 2);
+    const int p = pw + gq + h * 8;
+    if (tq == 0 && p < P) {
+      const size_t at = static_cast<size_t>(b) * P + p;
+      m_out[at] = m[h];
+      z_out[at] = l[h];
+      colsum_out[at] = cs[h];
+    }
+  }
+
+  // this block's sum of g * delta over its anchors, per class: the 8 row
+  // groups of a warp, then the four warps in order
+  float* red = smem;  // [kWarps][CP]
+  __syncthreads();    // the key tiles are no longer read
+#pragma unroll
+  for (int nn = 0; nn < NK; ++nn) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float x = col[nn][u];
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      }
+      if (gq == 0) red[warp * CP + 8 * nn + 2 * tq + u] = x;
+    }
   }
   __syncthreads();
   if (threadIdx.x < C) {
     float s = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w * CP + threadIdx.x];
+    for (int w = 0; w < kWarps; ++w) s += red[w * CP + threadIdx.x];
     dwz_part[(static_cast<size_t>(b) * gridDim.x + blockIdx.x) * C +
              threadIdx.x] = s;
   }
@@ -187,255 +184,6 @@ dwz_reduce_kernel(const float* __restrict__ part, float* __restrict__ dwz,
   if (threadIdx.x == 0) dwz[c] = red[0];
 }
 
-// --- the tiled tensor-core kernels: dq and dk, dv -------------------------
-
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16 * kWarps;  // anchors (dq) or keys (dk/dv) a block
-constexpr int kItems = 32;          // keys (dq) or anchors (dk/dv) a tile
-
-// bits + 0x1000, kept where it is written (volatile: a split inside a loop
-// is not hoisted out of it).
-__device__ __forceinline__ uint32_t add_half_ulp_here(uint32_t bits) {
-  uint32_t r;
-  asm volatile("add.u32 %0, %1, 4096;" : "=r"(r) : "r"(bits));
-  return r;
-}
-
-// x as hi + lo for the tensor cores, which read a TF32 operand from the top
-// 19 bits of its register and drop the low 13 (the compiler's own
-// cvt.rna.tf32.f32 relies on this too). hi = x + half a TF32 step, so that
-// it reads as x rounded to nearest TF32, ties away, as cvt.rna rounds; lo =
-// x - tf32(hi), exact in f32, reads truncated to TF32. |x - tf32(hi) -
-// tf32(lo)| < 2^-21 |x|, in 3 instructions where two cvt.rna take 8.
-template <int N, bool kHere = false>
-__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&hi)[N],
-                                      uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const uint32_t bits = __float_as_uint(x[i]);
-    hi[i] = kHere ? add_half_ulp_here(bits) : bits + 0x1000u;
-    lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i] & 0xffffe000u));
-  }
-}
-
-// d += a b on the tensor cores, one m16n8k8 TF32 product.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a b on the tensor cores, from a zero accumulator.
-__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
-}
-
-// d += a b in 3xTF32, a and b split (see split): the small terms first,
-// then big x big.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
-                                     const uint32_t (&alo)[4],
-                                     const uint32_t (&bhi)[2],
-                                     const uint32_t (&blo)[2]) {
-  mma(d, alo, bhi);
-  mma(d, ahi, blo);
-  mma(d, ahi, bhi);
-}
-
-// sum += a b in 3xTF32, the product formed in a fresh accumulator and added
-// with a rounded f32 add. The tensor cores truncate their f32 accumulator
-// at every step; over the thousands of steps of a sum over all anchors or
-// keys that error is biased and grows with the count (2.3e-4 of dk's
-// largest entry at P=32,756 on an H100 when dk was the accumulator
-// itself), where rounded adds keep it at the f32 sum's own.
-__device__ __forceinline__ void mma3_add(float (&sum)[4],
-                                         const uint32_t (&ahi)[4],
-                                         const uint32_t (&alo)[4],
-                                         const uint32_t (&bhi)[2],
-                                         const uint32_t (&blo)[2]) {
-  float t[4];
-  mma_zero(t, alo, bhi);
-  mma(t, ahi, blo);
-  mma(t, ahi, bhi);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) sum[i] += t[i];
-}
-
-// The A operand a warp keeps for its 16 rows, k = classes: x[kk] is the
-// fragment of classes 8kk .. 8kk+7 (a0: row g, class t; a1: row g+8,
-// class t; a2, a3: class t+4). With kHoist it is split once; otherwise it
-// is split at each use.
-template <int NK, bool kHoist>
-struct RowsA {
-  float x[NK][4];
-  uint32_t hi[kHoist ? NK : 1][4];
-  uint32_t lo[kHoist ? NK : 1][4];
-
-  __device__ __forceinline__ void prepare() {
-    if (kHoist) {
-#pragma unroll
-      for (int kk = 0; kk < NK; ++kk) split<4>(x[kk], hi[kHoist ? kk : 0],
-                                               lo[kHoist ? kk : 0]);
-    }
-  }
-  __device__ __forceinline__ void at(int kk, uint32_t (&h)[4],
-                                     uint32_t (&l)[4]) const {
-    if (kHoist) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        h[i] = hi[kHoist ? kk : 0][i];
-        l[i] = lo[kHoist ? kk : 0][i];
-      }
-    } else {
-      split<4, true>(x[kk], h, l);
-    }
-  }
-};
-
-// Word of (class c, item i) in a [CP][kItems] tile: the items of a class
-// XOR-swizzled by bits 0-2 of the class, so that the fragment loads below
-// and the 16-byte copies hit 32 distinct banks.
-__device__ __forceinline__ int swz(int c, int i) {
-  return c * kItems + (i ^ (((c & 3) << 3) | (c & 4)));
-}
-
-// B operand with k = classes 8kk + t (+4) and n = items n0 + pi(g),
-// pi(g) = 4(g&1) + g/2: accumulator columns 2t, 2t+1 then hold items t and
-// t+4, the k indices of the A fragment of the next product.
-__device__ __forceinline__ void load_kn(const uint32_t* hi, const uint32_t* lo,
-                                        int kk, int n0, int g, int t,
-                                        uint32_t (&bhi)[2],
-                                        uint32_t (&blo)[2]) {
-  const int i = n0 + ((g & 1) << 2) + (g >> 1);
-  const int w0 = swz(8 * kk + t, i), w1 = swz(8 * kk + t + 4, i);
-  bhi[0] = hi[w0];
-  bhi[1] = hi[w1];
-  blo[0] = lo[w0];
-  blo[1] = lo[w1];
-}
-
-// B operand with k = items i0 + t (+4) and n = classes 8nn + g.
-__device__ __forceinline__ void load_nk(const uint32_t* hi, const uint32_t* lo,
-                                        int i0, int nn, int g, int t,
-                                        uint32_t (&bhi)[2],
-                                        uint32_t (&blo)[2]) {
-  const int w0 = swz(8 * nn + g, i0 + t), w1 = swz(8 * nn + g, i0 + t + 4);
-  bhi[0] = hi[w0];
-  bhi[1] = hi[w1];
-  blo[0] = lo[w0];
-  blo[1] = lo[w1];
-}
-
-// Split a staged [CP][kItems] tile into hi and lo tiles (see split), a
-// block's threads four floats each at a time: every warp then reads its B
-// operands split, where it would otherwise split the same floats itself.
-template <int CP>
-__device__ __forceinline__ void split_tile(const float* raw, uint32_t* hi,
-                                           uint32_t* lo) {
-  for (int e = threadIdx.x * 4; e < CP * kItems; e += kThreads * 4) {
-    const float4 x4 = *reinterpret_cast<const float4*>(raw + e);
-    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-    uint32_t h[4], l[4];
-    split<4>(x, h, l);
-    *reinterpret_cast<uint4*>(hi + e) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(lo + e) = make_uint4(l[0], l[1], l[2], l[3]);
-  }
-}
-
-// Dynamic shared memory of a dq or dk/dv block: two arrays staged
-// double-buffered [2][2][CP * kItems] floats, then their hi and lo tiles
-// [2][2][CP * kItems].
-template <int CP>
-constexpr size_t kTileBytes = 8 * sizeof(float) * CP * kItems;
-
-// cp.async of 4 or 16 bytes into shared memory, zero-filled where !ok (src
-// must then still be a valid address; it is not read).
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one group of copies is in flight.
-__device__ __forceinline__ void copy_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Wait until every group of copies has landed.
-__device__ __forceinline__ void copy_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Stage items [0, n) of a tile whose item i is the row src[i*C .. i*C+C):
-// k, v and row-major q, g. 4-byte copies; a warp's 32 lanes take 8 items x
-// 4 classes (8 sectors a request, no bank conflicts).
-template <int CP>
-__device__ __forceinline__ void stage_rows(float* tile,
-                                           const float* __restrict__ src,
-                                           int n, int C) {
-  const int lane = threadIdx.x % 32;
-  const int r = lane % 8, u = lane / 8;
-  for (int blk = threadIdx.x / 32; blk < CP; blk += kWarps) {
-    const int i = (blk % 4) * 8 + r;
-    const int c = (blk / 4) * 4 + u;
-    const bool ok = i < n && c < C;
-    copy4(tile + swz(c, i), ok ? src + static_cast<size_t>(i) * C + c : src,
-          ok);
-  }
-}
-
-// Stage items [0, n) of a tile whose class c is the row src[c*P ..]:
-// class-major q, g. 16-byte copies of 4 items where `vec` (P a multiple of
-// 4 and src 16-byte aligned, so n is a multiple of 4 too), else 4-byte ones.
-template <int CP>
-__device__ __forceinline__ void stage_cols(float* tile,
-                                           const float* __restrict__ src,
-                                           int n, int C, int P, bool vec) {
-  if (vec) {
-    for (int e = threadIdx.x; e < CP * (kItems / 4); e += kThreads) {
-      const int c = e / (kItems / 4);
-      const int i = (e % (kItems / 4)) * 4;
-      const bool ok = i < n && c < C;
-      copy16(tile + swz(c, i),
-             ok ? src + static_cast<size_t>(c) * P + i : src, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < CP * kItems; e += kThreads) {
-      const int c = e / kItems;
-      const int i = e % kItems;
-      const bool ok = i < n && c < C;
-      copy4(tile + swz(c, i), ok ? src + static_cast<size_t>(c) * P + i : src,
-            ok);
-    }
-  }
-}
-
-// Items processed together, 8 a chunk: more chunks share each split of the
-// A operand, at 8 accumulator registers a chunk.
-template <int CP>
-constexpr int kChunks = CP <= 16 ? 2 : 4;
-
 template <int CP, bool kRowMajor>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -462,22 +210,8 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // this warp's rows of q and g*wz, zero past P and C
   RowsA<NK, (CP <= 16)> qa, ga;
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int p = p0 + gq + (r % 2) * 8;
-      const int c = 8 * kk + tq + (r / 2) * 4;
-      const bool ok = p < P && c < C;
-      const size_t o = kRowMajor
-                           ? (static_cast<size_t>(b) * P + p) * C + c
-                           : (static_cast<size_t>(b) * C + c) * P + p;
-      qa.x[kk][r] = ok ? q[o] : 0.f;
-      ga.x[kk][r] = ok ? g[o] * wz[c] : 0.f;
-    }
-  }
-  qa.prepare();
-  ga.prepare();
+  qa.template load<kRowMajor>(q, nullptr, b, p0, C, P, gq, tq);
+  ga.template load<kRowMajor>(g, wz, b, p0, C, P, gq, tq);
   // rows g and g+8: m, 1/z, colsum; 0 past P, so that attn is 0
   float mr[2], izr[2], csr[2];
 #pragma unroll
@@ -610,7 +344,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int j0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16;
   const size_t kv = static_cast<size_t>(b) * K * C;
 
-  // this warp's rows of k and v*wz, zero past K and C
+  // this warp's rows of k and v*wz, zero past K and C (loaded together:
+  // two loads of RowsA::load each leave dk/dv at CP=64 spilling)
   RowsA<NK, (CP <= 16)> ka, va;
 #pragma unroll
   for (int kk = 0; kk < NK; ++kk) {
@@ -782,7 +517,7 @@ int launch_blockwise(const float* q, const float* k, const float* v,
                      float* dv, float* dwz, float* m, float* z, float* colsum,
                      float* part, int B, int C, int P, int K,
                      cudaStream_t st) {
-  const int tiles = (P + kThreads - 1) / kThreads;
+  const int tiles = (P + kRows - 1) / kRows;
   bwd_stats_kernel<CP, kRowMajor><<<dim3(tiles, B), kThreads, 0, st>>>(
       q, k, v, wz, g, m, z, colsum, part, C, P, K);
   cudaError_t err = cudaGetLastError();
@@ -844,7 +579,7 @@ extern "C" int ct_attention_cm_bwd_flash_f32(
 }
 
 // Blockwise backward, class-major q, g, dq [B,C,P] → dq, dk, dv, dwz. The
-// caller's scratch: m, z, colsum [B,P] and part [B, ceil(P/128), C].
+// caller's scratch: m, z, colsum [B,P] and part [B, ceil(P/64), C].
 extern "C" int ct_attention_cm_bwd_f32(
     const void* q, const void* k, const void* v, const void* wz,
     const void* g, void* dq, void* dk, void* dv, void* dwz, void* m, void* z,

@@ -195,7 +195,7 @@ def ct_attention_cm_bwd_flash(q_cm, k, v, wz, g_cm, m, z, colsum):
     return dq, dk, dv
 
 
-ANCHORS_PER_BLOCK = 128   # the kernels' block of anchors (csrc kThreads)
+ANCHORS_PER_BLOCK = 64   # the kernels' block of anchors (csrc kRows)
 
 
 def _blockwise_bwd(wrapper, q, k, v, wz, g, row_major: bool):

@@ -23,6 +23,18 @@ truncate their f32 accumulator at every m16n8k8 step, so a sum of thousands
 of steps kept in the accumulator drifts (on the card, 2.3e-4 of dk's
 largest entry at the 512 bench's 32,756 anchors); the kernels form each
 step's product in a fresh accumulator and add it with a rounded f32 add.
+
+The forwards (``ct_attention_cm.cu``) and the blockwise backward's stats
+pass run the same arithmetic since they too moved to the tensor cores: the
+scores in 3xTF32, an online softmax over tiles of 32 keys (the running max
+and denominator, the accumulators rescaled when the max grows), and P·V in
+3xTF32, each tile's product formed from zero and added to the running sum
+with a rounded f32 add. Emulated here at the same C=60 inputs: out and
+delta within ``KERNEL_TOL``, m within it, z relative within 1e-5, and the
+stats pass's colsum within ``BWD_TOL`` of its largest entry; a single TF32
+pass lies outside the band. The bfloat16-exponent variant's weights
+e = bf16(exp(bf16(s - m))) have 8 significant bits, so their small part is
+0 and e·v needs two products, not three, bit for bit.
 """
 
 import functools
@@ -36,7 +48,9 @@ from ct_tpu_torch.ops.ct_attention import (
 )
 
 BWD_TOL = 1e-4    # chip_smoke.py's band for the backward kernels
+KERNEL_TOL = 1e-4  # chip_smoke.py's band for the forward kernels
 B, C, P, K = 1, 60, 4096, 1858
+TILE = 32          # keys a tile of the forward's walk
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -85,15 +99,22 @@ def backward(q, k, v, wz, g, m, z, colsum, mm):
 
 
 @functools.cache
-def errors():
-    """max |Δ| / max |plain f64| per output, for 3xTF32 and single TF32;
-    and the largest |s|."""
+def inputs():
+    """The seeded inputs at the card check's scale: q, k, v, g, wz."""
     rng = np.random.default_rng(0)
     t = lambda *shape, scale=1.0: torch.from_numpy(
         rng.standard_normal(shape).astype(np.float32) * scale)
     q, g = t(B, C, P), t(B, C, P)
     k, v = t(B, K, C), t(B, K, C)
     wz = t(C, scale=0.1)
+    return q, k, v, g, wz
+
+
+@functools.cache
+def errors():
+    """max |Δ| / max |plain f64| per output, for 3xTF32 and single TF32;
+    and the largest |s|."""
+    q, k, v, g, wz = inputs()
     with torch.no_grad():
         d64 = [x.double() for x in (q, k, v, g)]
         _, delta, m, z = ct_attention_cm_stats_reference(
@@ -186,3 +207,98 @@ def test_single_pass_tf32_backward_is_outside_the_band():
     assert max(out["single"].values()) > BWD_TOL, out
     # the scores' error reaches dq and dk through ds
     assert out["single"]["dq"] > 10 * out["split"]["dq"], out
+
+
+def tile_product(a, b, split: bool):
+    """a @ b over one tile's keys as the tensor cores leave it: the 3xTF32
+    terms (or, without ``split``, the single TF32 one) summed exactly and
+    rounded toward zero to f32."""
+    ah, bh = tf32(a), tf32(b)
+    prod = ah.double() @ bh.double()
+    if split:
+        al, bl = tf32_truncated(a - ah), tf32_truncated(b - bh)
+        prod = prod + al.double() @ bh.double() + ah.double() @ bl.double()
+    return truncated_to_f32(prod)
+
+
+def forward(q, k, v, mm):
+    """The forward's walk as the kernels take it, one image: q [C, P], k,
+    v [K, C] → (delta [C, P], m [P], z [P]). Tiles of 32 keys; the scores
+    by ``mm``; the running max and denominator, the accumulators rescaled
+    where the max grows; each tile's P·V in the same precision (3xTF32 with
+    ``mm_split``, else single TF32), rounded toward zero to f32 (the tensor
+    cores' accumulator) and added to the running sum with a rounded f32
+    add."""
+    m = torch.full((q.shape[1],), -torch.inf)
+    z = torch.zeros(q.shape[1])
+    o = torch.zeros(q.shape)
+    for j0 in range(0, k.shape[0], TILE):
+        s = mm(k[j0:j0 + TILE], q)                      # [n, P]
+        grown = torch.maximum(m, s.amax(dim=0))
+        corr = torch.where(grown > m, torch.exp(m - grown), 1.0)
+        z, o, m = z * corr, o * corr, grown
+        e = torch.exp(s - m)
+        z = z + e.sum(dim=0)
+        o = o + tile_product(v[j0:j0 + TILE].T, e, mm is mm_split)
+    return o / z, m, z
+
+
+@functools.cache
+def forward_errors():
+    """The forward's and the stats pass's outputs against float64, for
+    3xTF32 and for single TF32: out and delta max |Δ|, m max |Δ|, z max
+    relative |Δ|, colsum max |Δ| over its largest entry."""
+    q, k, v, g, wz = (x[0] if x.dim() == 3 else x for x in inputs())
+    with torch.no_grad():
+        s64 = k.double() @ q.double()
+        m64 = s64.amax(dim=0)
+        e64 = torch.exp(s64 - m64)
+        z64 = e64.sum(dim=0)
+        delta64 = (v.double().T @ e64) / z64
+        colsum64 = (g.double() * delta64 * wz.double()[:, None]).sum(dim=0)
+        out = {}
+        for name, mm in (("split", mm_split), ("single", mm_single)):
+            delta, m, z = forward(q, k, v, mm)
+            colsum = (g * delta * wz[:, None]).sum(dim=0)
+            out[name] = {
+                "out": ((delta * wz[:, None]).double()
+                        - delta64 * wz.double()[:, None]).abs().max().item(),
+                "delta": (delta.double() - delta64).abs().max().item(),
+                "m": (m.double() - m64).abs().max().item(),
+                "z": ((z.double() - z64).abs() / z64).max().item(),
+                "colsum": ((colsum.double() - colsum64).abs().max()
+                           / colsum64.abs().max()).item(),
+            }
+    return out
+
+
+FORWARD_BANDS = {"out": KERNEL_TOL, "delta": KERNEL_TOL, "m": KERNEL_TOL,
+                 "z": 1e-5, "colsum": BWD_TOL}
+
+
+@pytest.mark.parametrize("output", sorted(FORWARD_BANDS))
+def test_three_pass_tf32_forward_is_within_the_band(output):
+    out = forward_errors()
+    assert out["split"][output] <= FORWARD_BANDS[output], out
+
+
+def test_single_pass_tf32_forward_is_outside_the_band():
+    out = forward_errors()
+    assert out["single"]["delta"] > KERNEL_TOL, out
+    assert out["single"]["delta"] > 10 * out["split"]["delta"], out
+
+
+def test_bf16_weights_need_two_products():
+    # the weights of the bfloat16-exponent variant: their small part is 0,
+    # so small·big drops out and e·v is e·v_lo + e·v_hi, bit for bit
+    q, k, v, _, _ = (x[0] if x.dim() == 3 else x for x in inputs())
+    s = mm_split(k[:TILE], q)
+    x = (s - s.amax(dim=0)).to(torch.bfloat16).float()
+    e = torch.exp(x).to(torch.bfloat16).float()
+    assert torch.equal(tf32_truncated(e), e)
+    assert torch.equal(tf32(e), e)
+    assert not tf32_truncated(e - tf32(e)).any()
+    vt = v[:TILE].T
+    vh = tf32(vt)
+    two = vh @ e + tf32_truncated(vt - vh) @ e
+    assert torch.equal(mm_split(vt, e), two)
