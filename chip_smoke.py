@@ -9,7 +9,7 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
 2. build   every CUDA source of the port, built with nvcc from csrc/,
            one nvcc each, all started together; ptxas's registers and
            spill bytes of every kernel instantiation, under its name, and
-           the spill bytes of each source in all.
+           the spill bytes of each source in all, which must be 0.
 3. kernel  each kernel on the card against its plain PyTorch version, f32
            with TF32 off: ``ct_attention_cm`` (eval forward) at the eval
            path's shapes (B=8, C=15), at the transfer width (C=60) and at
@@ -23,11 +23,15 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            function (``scaled_dot_product_attention`` forward or backward,
            ``relu(max_pool2d)`` and its autograd backward).
            ``ct_attention_serving`` (the fused serving CT head) at B=8 with
-           C=15/N=5 and C=60/N=20 and at ragged P and K, timed at B=8 beside
-           the unfused head in library calls; ``nms_mask`` (the NMS kernel)
-           with keep masks equal to the plain fixpoint loop's on seeded
-           and tie-heavy boxes at N=160 rows of K=200, timed beside the
-           loop (whose sweeps it counts). ``ct_attention_cm_bwd`` (the
+           C=15/N=5 and C=60/N=20 and at ragged P and K, two launches bit
+           for bit, timed at B=8 beside the unfused head in library calls,
+           with both bounds (its θ, score and P·V products run on the
+           tensor cores in 3xTF32); ``nms_mask`` (the NMS kernel) with
+           keep masks equal to the plain fixpoint loop's on seeded and
+           tie-heavy boxes at N=160 rows of K=200, timed beside the loop
+           (whose sweeps it counts), by CUDA events around the wrapper's
+           calls and, the kernel alone, by torch.profiler.
+           ``ct_attention_cm_bwd`` (the
            blockwise backward of CT_ATTENTION_FLASH=0) at B=8 with C=15
            and 60 and at ragged shapes, also through autograd, timed at
            B=64 beside the SDPA backward; the flash and blockwise
@@ -56,8 +60,9 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
 4. model   the phase-2 incre split-1 RFBNet300 with ``ref_model.pth`` on
            the card: 1 warm-up and 3 timed eval steps on 8 seeded images
            (images/s from the median step), the kernels' launch counts
-           over those steps, one profiled step, and the same model on the
-           CPU on one image, whose detections must match.
+           over those steps, one profiled step (with the device time of
+           the port's kernels in it), and the same model on the CPU on one
+           image, whose detections must match.
    serving the same model on the int8 serving path (``test.py --int8``):
            BN folded, calibrated on 8 seeded images, quantized with
            ``SKIP_DEFAULT`` and int8 chained across the trunk's pools; 1
@@ -213,6 +218,10 @@ def phase_build() -> dict:
                             res["log"])
         out[name] = {"seconds": res["seconds"], "built": res["built"],
                      "spill_bytes": sum(map(int, spills)), "ptxas": ptxas}
+    spilled = {name: r["spill_bytes"] for name, r in out.items()
+               if r["spill_bytes"]}
+    if spilled:
+        raise AssertionError(f"kernels spill registers: {spilled}")
     return out
 
 
@@ -287,12 +296,13 @@ def serving_case(rng, b, c, p, kk, n, time_it: bool) -> dict:
     with torch.inference_mode():
         out = ct_attention_serving(*args)
         ref = ct_attention_serving_reference(*args)
+        deterministic = same_bits(lambda: (ct_attention_serving(*args),))
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         res = {"B": b, "C": c, "P": p, "K": kk, "N": n, "max_abs_err": err,
                "rel_err": err / ref.abs().max().item(),
-               "tol": SERVING_TOL}
-        if not res["rel_err"] <= SERVING_TOL:
+               "tol": SERVING_TOL, "deterministic": deterministic}
+        if not (res["rel_err"] <= SERVING_TOL and deterministic):
             raise AssertionError(f"ct_attention_serving disagrees with its "
                                  f"plain version: {res}")
         if not time_it:
@@ -318,9 +328,13 @@ def serving_case(rng, b, c, p, kk, n, time_it: bool) -> dict:
             library_ms=cuda_ms(library, 20),
             library_max_abs_err=(library().transpose(1, 2) - out)
             .abs().max().item(),
-            **bound(2 * b * p * c * (2 * kk + c + n),
-                    4 * (b * c * p + b * n * p + 2 * b * kk * c + c * c
-                         + 3 * c + n * c)))
+            # θ, the scores and P·V: three products, each three TF32 ones
+            # on the tensor cores; the classifier's 2·B·P·C·N flops, which
+            # run on the FP32 pipes, are counted with them (1% at C=60,
+            # N=20)
+            **tc_bound(2 * b * p * c * (2 * kk + c + n),
+                       4 * (b * c * p + b * n * p + 2 * b * kk * c + c * c
+                            + 3 * c + n * c)))
     return res
 
 
@@ -369,11 +383,27 @@ def nms_case(rng, n, k, ties: bool, time_it: bool) -> dict:
         # K(K-1)/2 IoUs per row of ~20 flops; boxes and valid read once,
         # keep written once
         res.update(ms=cuda_ms(lambda: nms_mask(boxes, valid, 0.45, 1.0), 50),
+                   device_ms=profiled_ms(
+                       lambda: nms_mask(boxes, valid, 0.45, 1.0),
+                       "nms_kernel", 50),
                    plain_ms=cuda_ms(lambda: nms_mask_reference(
                        boxes, valid, 0.45, 1.0), 10),
                    library_ms=None,
                    **bound(20 * n * k * (k - 1) / 2, n * k * (16 + 1 + 1)))
     return res
+
+
+def profiled_ms(fn, name: str, iters: int) -> float:
+    """Mean device time in ms of the kernel ``name`` over ``iters`` calls
+    of ``fn()`` under torch.profiler: the kernel alone, without the host
+    work of its wrapper that CUDA events around back-to-back calls also
+    see when the kernel is shorter than it."""
+    hits = [e for e in profiled_events(fn, iters) if name in e.key]
+    count = sum(e.count for e in hits)
+    if count != iters:
+        raise AssertionError(f"the profiler saw {count} launches of {name} "
+                             f"in {iters} calls")
+    return sum(e.device_time_total for e in hits) / 1e3 / count
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -592,10 +622,20 @@ BLOCKWISE_KERNELS = ("bwd_stats_kernel", "dwz_reduce_kernel", "bwd_dq_kernel",
                      "bwd_dkdv_kernel")
 
 
-def kernel_split_ms(fn, names) -> dict:
-    """Device ms of each kernel of one call ``fn()`` under torch.profiler,
-    by the first of ``names`` that its name holds; what matches none goes
-    under "other". One warm-up call first."""
+# cycles of each marker kernel that brackets a profiled window (~25 ms)
+MARKER_CYCLES = 50_000_000
+
+
+def profiled_events(fn, iters: int = 1) -> list:
+    """The device kernels of ``iters`` calls of ``fn()`` under
+    torch.profiler (averaged by name), after one warm-up call. Two marker
+    kernels of ~25 ms (``torch.cuda._sleep``'s ``spin_kernel``, left out of
+    the result) bracket the calls inside the window: on the card a window
+    that opened tens of seconds after the process's first one lost the
+    kernel it began with (the blockwise backward's stats pass) and kept
+    the next ones, as if the device's timestamps had drifted out of the
+    window's start; the markers keep the measured kernels clear of both
+    ends."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -603,12 +643,22 @@ def kernel_split_ms(fn, names) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        torch.cuda._sleep(MARKER_CYCLES)
+        for _ in range(iters):
+            fn()
+        torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.key]
+
+
+def kernel_split_ms(fn, names) -> dict:
+    """Device ms of each kernel of one call ``fn()`` under torch.profiler,
+    by the first of ``names`` that its name holds; what matches none goes
+    under "other". One warm-up call first."""
     out = dict.fromkeys((*names, "other"), 0.0)
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in profiled_events(fn):
         key = next((n for n in names if n in e.key), "other")
         out[key] += e.device_time_total / 1e3
     if not all(out[n] > 0 for n in names):
@@ -926,6 +976,12 @@ def seeded_images(seed: int, n: int, size: int):
     return img - torch.tensor(RGB_MEANS)[None, :, None, None]
 
 
+# the hand-written kernels of the eval and serving steps, by the names the
+# profiler gives them: their device time in one profiled step
+PROFILED_KERNELS = ("ct_attention_kernel", "ct_attention_serving_kernel",
+                    "nms_kernel")
+
+
 def eval_steps(step, x, hw, counts: dict, expected: dict, steps: int,
                out_dir: str, table: str) -> dict:
     """1 warm-up and ``steps`` timed calls of an eval step on the card
@@ -952,7 +1008,8 @@ def eval_steps(step, x, hw, counts: dict, expected: dict, steps: int,
            "images_per_s": x.shape[0] / median_s, "launches": launches,
            "detections_per_image": dets.valid.sum(1).tolist(),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    res["profile"] = profile_step(lambda: step(x, hw), out_dir, table)
+    res["profile"] = profile_step(lambda: step(x, hw), out_dir, table,
+                                  PROFILED_KERNELS)
     return res
 
 
@@ -1379,9 +1436,10 @@ def card_vs_cpu(task, net, batch, priors) -> dict:
     return res
 
 
-def profile_step(fn, out_dir: str, table: str) -> dict:
-    """One step ``fn()`` under torch.profiler: device time by kernel. The
-    table goes to ``out_dir/table``."""
+def profile_step(fn, out_dir: str, table: str, names=()) -> dict:
+    """One step ``fn()`` under torch.profiler: device time by kernel, and
+    under ``kernels_ms`` that of each kernel whose name holds one of
+    ``names``. The table goes to ``out_dir/table``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1403,9 +1461,11 @@ def profile_step(fn, out_dir: str, table: str) -> dict:
                                           row_limit=80))
     top = [{"name": e.key[:80], "ms": e.device_time_total / 1e3,
             "calls": e.count} for e in events[:12]]
+    named = {n: sum(e.device_time_total for e in events if n in e.key) / 1e3
+             for n in names}
     return {"wall_ms": wall * 1e3, "device_kernel_ms": busy_ms,
             "device_busy_share": busy_ms / (wall * 1e3) if wall else None,
-            "top": top}
+            "kernels_ms": named, "top": top}
 
 
 def kernels_line(results: dict) -> list:
@@ -1463,6 +1523,12 @@ def kernels_line(results: dict) -> list:
         "ct_attention_bwd": {
             **pipes(rowmajor["bwd"]),
             **at_width(kern["rowmajor_incre"]["bwd"], 15)},
+        "ct_attention_serving": {
+            **pipes(kern["serving_incre"]),
+            **at_width(kern["serving_transfer"], 60)},
+        # the NMS kernel alone on the card (profiler), beside ``ms``, the
+        # CUDA events around its wrapper's calls
+        "nms_mask": {"device_ms": kern["nms"]["device_ms"]},
     }
     rows = [
         ("ct_attention_cm", "ct_attention_cm.cu", att + "146",

@@ -80,9 +80,10 @@ ct_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.y;
   const int p0 = blockIdx.x * kRows;
 
+  RowsA<NK, true> qa;
+  qa.template load<kRowMajor>(q, nullptr, b, p0 + warp * 16, C, P, gq, tq);
   float o[NK][4], m[2], l[2];
-  attend<CP, kRowMajor, kExpBf16>(q, k, v, b, p0 + warp * 16, C, P, K, smem,
-                                  o, m, l);
+  attend<CP, kExpBf16>(qa, k, v, b, C, K, smem, o, m, l);
 
   // rows g and g+8 of this warp: delta = O / z into the stage
   __syncthreads();  // the key tiles are no longer read

@@ -99,8 +99,10 @@ bwd_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.y;
   const int pw = blockIdx.x * kRows + warp * 16;
 
+  RowsA<NK, true> qa;
+  qa.template load<kRowMajor>(q, nullptr, b, pw, C, P, gq, tq);
   float o[NK][4], m[2], l[2];
-  attend<CP, kRowMajor, false>(q, k, v, b, pw, C, P, K, smem, o, m, l);
+  attend<CP, false>(qa, k, v, b, C, K, smem, o, m, l);
 
   // g * delta in the accumulator layout (row g + 8(r/2), class 8nn + 2t +
   // r%2): colsum per row, and per class this lane's two rows; a row past P

@@ -1,8 +1,9 @@
 // The tensor-core building blocks of the Context-Transformer attention
 // kernels (ct_attention_cm.cu: the forwards; ct_attention_cm_bwd.cu: the
-// blockwise backward's stats pass and the dq and dk/dv kernels), float32 on
-// Hopper, and the forward's walk over the keys that the forwards and the
-// stats pass share.
+// blockwise backward's stats pass and the dq and dk/dv kernels;
+// ct_attention_serving.cu: the serving head), float32 on Hopper, and the
+// forward's walk over the keys that the forwards, the stats pass and the
+// serving head share.
 //
 // Every product is a warp-wide mma.sync m16n8k8 on the tensor cores in
 // 3xTF32: each operand a is split as big + small and a*b = small*big +
@@ -350,13 +351,16 @@ constexpr int kChunks = CP <= 16 ? 2 : 4;
 // --- the forward's walk over the keys ------------------------------------
 
 // The softmax-weighted sum of one image's values for this warp's 16
-// anchors, rows p0 .. p0+15 of image b: on return, element r of o[nn]
-// (row g + 8(r/2), class 8nn + 2t + r%2, the accumulator layout) holds
-// sum_j e^(s_j - m) v[j, c], and m[h], l[h] hold row g + 8h's max m = max_j
-// s_j and denominator sum_j e^(s_j - m), l summed over the lane quad. s_j =
-// k[j,:].q[:,p] over all K keys, q class-major [B,C,P] or row-major
-// [B,P,C], k and v [B,K,C]. Every thread of the block calls it; `smem`
-// holds kWalkFloats<CP>, and the caller synchronises before reusing it.
+// anchors: on return, element r of o[nn] (row g + 8(r/2), class 8nn + 2t +
+// r%2, the accumulator layout) holds sum_j e^(s_j - m) v[j, c], and m[h],
+// l[h] hold row g + 8h's max m = max_j s_j and denominator sum_j e^(s_j -
+// m), l summed over the lane quad. s_j = k[j,:].q[:,p] over all K keys of
+// image b, k and v [B,K,C]; the caller prepares q, the warp's A operand
+// (RowsA, split once): the forwards and the stats pass load it from q,
+// the serving head forms it from conf by its theta product. Every thread
+// of the block calls it; `smem` holds kWalkFloats<CP>, and the caller
+// synchronises before reusing it. The walk begins with a barrier, so the
+// caller may read smem up to the call.
 //
 // The scores are the dq kernel's (bwd_dq_kernel): the same fragments,
 // splits, class steps and 3xTF32 order for each accumulator, so the flash
@@ -378,13 +382,13 @@ constexpr int kChunks = CP <= 16 ? 2 : 4;
 // H100, PERF.md §6). Independent products are issued together (the chunks
 // of a class step; four class blocks of P V), each accumulator's products
 // in mma3's order.
-template <int CP, bool kRowMajor, bool kExpBf16>
-__device__ __forceinline__ void attend(const float* __restrict__ q,
+template <int CP, bool kExpBf16>
+__device__ __forceinline__ void attend(const RowsA<CP / 8, true>& qa,
                                        const float* __restrict__ k,
                                        const float* __restrict__ v, int b,
-                                       int p0, int C, int P, int K,
-                                       float* smem, float (&o)[CP / 8][4],
-                                       float (&m)[2], float (&l)[2]) {
+                                       int C, int K, float* smem,
+                                       float (&o)[CP / 8][4], float (&m)[2],
+                                       float (&l)[2]) {
   static_assert(CP % 8 == 0 && kThreads % 32 == 0, "tile shapes");
   constexpr int NK = CP / 8;
   constexpr int NCH = kChunks<CP>;
@@ -393,8 +397,6 @@ __device__ __forceinline__ void attend(const float* __restrict__ q,
   const int lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;
 
-  RowsA<NK, true> qa;
-  qa.template load<kRowMajor>(q, nullptr, b, p0, C, P, gq, tq);
 #pragma unroll
   for (int nn = 0; nn < NK; ++nn) {
 #pragma unroll

@@ -1,4 +1,5 @@
-// Fused serving Context-Transformer head, float32, for Hopper.
+// Fused serving Context-Transformer head, float32, for Hopper, on the
+// tensor cores.
 //
 // Replaces the Pallas TPU kernel `_serving_kernel` of
 // ct_tpu/ops/ct_attention.py, reached through `ct_attention_serving`. For
@@ -12,38 +13,83 @@
 //
 // conf is [B,C,P] (anchors contiguous); k, v are [B,K,C]; Wt is the theta
 // kernel [C,C] laid out (in, out); bt, wz are [C]; obj is [N,C]; out is
-// [B,N,P]. Only out reaches device memory: q and novel live in registers.
+// [B,N,P]. Only out reaches device memory: q and novel never do.
 //
-// What bounds it on the H100: arithmetic. Per anchor it does C*C FMAs for
-// q, 2*K*C for the attention (score and weighted value sum), K exponentials
-// and N*C for the classifier: 2*B*P*C*(2K+C+N) flops, against conf read
-// once and out written once (7.5 MB at B=8, C=15, N=5), with k and v
-// (K*C floats per image) held in L2. This first version runs on the FP32
-// pipes.
+// What bounds it on the H100: arithmetic. Per anchor it does C*C
+// multiply-adds for q, 2*K*C for the attention (score and weighted value
+// sum), K exponentials and N*C for the classifier: 2*B*P*C*(2K+C+N) flops,
+// against conf read once and out written once (7.5 MB at B=8, C=15, N=5),
+// with k and v (K*C floats per image) held in L2. Its three products (q,
+// the scores, P V) run on the tensor cores in 3xTF32, three TF32 products
+// each (ct_attention_mma.cuh); the classifier (N*C of the 2K+C+N terms,
+// 1% at C=60, N=20) on the FP32 pipes. PERF.md §6 row 6 gives the time
+// against both bounds.
 //
-// Design: the attention of ct_attention_cm.cu (one thread per anchor, 128
-// anchors per block, grid (P tiles, B); keys and values staged 64 at a time
-// in shared memory and read as warp broadcasts; an online softmax; ragged P
-// and K masked; C padded to 16 or 64 with zeros that add nothing), with the
-// head around it. Shared memory holds only the two key tiles and bt, wz:
-// Wt + I (the theta residual folded into the kernel) is staged first in the
-// key tile's space and obj last, so C = 64 fits in the 48 KB of static
-// shared memory. Registers: q and the C accumulators. q is formed by a loop
-// over the C classes that reads the conf column once from device memory,
-// coalesced along P (a loop, not unrolled, so that the compiler does not
-// unroll C*C products); the column is read again for the residual at the
-// end rather than held.
+// Design: the forwards' walk (attend, ct_attention_mma.cuh: 64 anchors a
+// block, 16 a warp, keys in cp.async tiles of 32, the scores and P V in
+// 3xTF32 mma.sync, an online softmax on the accumulator fragments), with
+// the head around it:
+//  * prologue: Wt + I (the residual folded into theta) is staged [CP][CP]
+//    in the walk's shared memory; each warp loads its 16 anchors' conf
+//    rows as A fragments (classes as k) and forms Q = X (Wt + I) on the
+//    tensor cores in 3xTF32. The B fragments read the output classes in
+//    the order pi(n) = 4(n&1) + n/2 (as load_kn reads keys), so that the
+//    accumulator already is the walk's A layout: bt is added, the
+//    fragments split, and the walk starts, with no shuffle and no trip
+//    through shared memory; the conf fragments are dead by then.
+//  * epilogue: delta = O / l staged in shared memory, as
+//    ct_attention_kernel stages it; obj [N][CP] and wz beside it. Each
+//    anchor is taken by two threads (the block's 128 for its 64 anchors):
+//    both read conf again along the anchors (coalesced) for the residual,
+//    take novel and its norm, and each computes half of the N scores on
+//    the FP32 pipes, obj read as broadcasts, out stored along the anchors.
+// Ragged P (rows past P compute on conf = 0 and store nothing), ragged K and
+// padded classes (zero in Wt + I, bt, wz and obj, so q and novel are zero
+// there) are handled as the forwards handle them. No atomics: two launches
+// give the same bits.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "ct_attention_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // anchors per block, one per thread
-constexpr int kKeyTile = 64;   // keys staged in shared memory at a time
+using namespace ct;
 
+constexpr int kMaxN = 64;  // the widest classifier
+// shared-memory stride of a class in the epilogue's stage: 2t*68 + g hits
+// 32 distinct banks for a warp's fragment writes
+constexpr int kStageStride = kRows + 4;
+
+// stride of an input class of the staged Wt + I: the four rows 8kk + t of
+// a B fragment then start on banks 8 apart (72t or 24t mod 32), so that a
+// warp's loads (those rows, output classes 8nn + pi(g)) hit 32 distinct
+// banks
 template <int CP>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kThetaStride = CP + 8;
+
+// shared memory of a block, in floats: Wt + I, then the walk's tiles, then
+// the epilogue's stage [CP][kStageStride] and obj [kMaxN][CP]; 8.4 KB at
+// CP=16, 33 KB at CP=64, under the 48 KB a kernel may declare statically
+template <int CP>
+constexpr int kServingFloats =
+    kWalkFloats<CP> > CP * kStageStride + kMaxN * CP
+        ? kWalkFloats<CP>
+        : CP * kStageStride + kMaxN * CP;
+
+// B operand of the theta product from the staged Wt + I: k = input classes
+// 8kk + t (+4), n = output classes 8nn + pi(g), split in registers.
+template <int CP>
+__device__ __forceinline__ void load_theta(const float* w, int kk, int nn,
+                                           int g, int t, uint32_t (&bh)[2],
+                                           uint32_t (&bl)[2]) {
+  constexpr int S = kThetaStride<CP>;
+  const int o = 8 * nn + ((g & 1) << 2) + (g >> 1);
+  const float x[2] = {w[(8 * kk + t) * S + o], w[(8 * kk + t + 4) * S + o]};
+  split<2>(x, bh, bl);
+}
+
+// Two blocks an SM, as the f32 forward: up to 255 registers a thread.
+template <int CP>
+__global__ void __launch_bounds__(kThreads, 2)
 ct_attention_serving_kernel(const float* __restrict__ conf,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -53,140 +99,118 @@ ct_attention_serving_kernel(const float* __restrict__ conf,
                             const float* __restrict__ obj,
                             float* __restrict__ out, int C, int P, int K,
                             int N, float scale) {
-  static_assert(CP % 4 == 0, "padded class count must be a multiple of 4");
-  static_assert(CP <= kKeyTile, "Wt + I must fit the key tile's space");
-  // ks holds Wt + I [CP, CP] first, then key tiles, then obj [N, CP]
-  __shared__ __align__(16) float ks[kKeyTile * CP];
-  __shared__ __align__(16) float vs[kKeyTile * CP];
-  __shared__ float bts[CP];
+  static_assert(CP * kThetaStride<CP> <= kWalkFloats<CP>,
+                "Wt + I fits in the walk's shared memory");
+  __shared__ __align__(16) float smem[kServingFloats<CP>];
   __shared__ float wzs[CP];
-
+  constexpr int NK = CP / 8;
+  constexpr int S = kThetaStride<CP>;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int gq = lane / 4, tq = lane % 4;
   const int b = blockIdx.y;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = p < P;
-  const float* confb = conf + static_cast<size_t>(b) * C * P;
+  const int p0 = blockIdx.x * kRows;
 
   for (int e = threadIdx.x; e < CP * CP; e += kThreads) {
     const int c = e / CP;
     const int o = e % CP;
-    ks[e] = (c < C && o < C) ? wt[c * C + o] + (c == o ? 1.f : 0.f) : 0.f;
+    smem[c * S + o] =
+        (c < C && o < C) ? wt[c * C + o] + (c == o ? 1.f : 0.f) : 0.f;
+  }
+  __syncthreads();
+
+  // q = conf (Wt + I) + bt, 3xTF32; element r of d[nn] is row g + 8(r/2),
+  // output class 8nn + t + 4(r%2): A fragment element {0, 2, 1, 3}[r]
+  RowsA<NK, true> qa;
+  {
+    RowsA<NK, false> x;
+    x.template load<false>(conf, nullptr, b, p0 + warp * 16, C, P, gq, tq);
+    float d[NK][4];
+#pragma unroll
+    for (int nn = 0; nn < NK; ++nn) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[nn][r] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t xh[4], xl[4];
+      x.at(kk, xh, xl);
+#pragma unroll
+      for (int nn = 0; nn < NK; ++nn) {
+        uint32_t bh[2], bl[2];
+        load_theta<CP>(smem, kk, nn, gq, tq, bh, bl);
+        mma3(d[nn], xh, xl, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < NK; ++nn) {
+      const int c = 8 * nn + tq;
+      const float b0 = c < C ? bt[c] : 0.f;
+      const float b1 = c + 4 < C ? bt[c + 4] : 0.f;
+      qa.x[nn][0] = d[nn][0] + b0;
+      qa.x[nn][1] = d[nn][2] + b0;
+      qa.x[nn][2] = d[nn][1] + b1;
+      qa.x[nn][3] = d[nn][3] + b1;
+    }
+    qa.prepare();
+  }
+
+  float o[NK][4], m[2], l[2];
+  attend<CP, false>(qa, k, v, b, C, K, smem, o, m, l);
+
+  // delta = O / l into the stage; obj and wz beside it
+  __syncthreads();  // the key tiles are no longer read
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int nn = 0; nn < NK; ++nn) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = warp * 16 + gq + (r / 2) * 8;
+      const int c = 8 * nn + 2 * tq + r % 2;
+      smem[c * kStageStride + row] = o[nn][r] * inv[r / 2];
+    }
+  }
+  float* objs = smem + CP * kStageStride;
+  for (int e = threadIdx.x; e < N * CP; e += kThreads) {
+    const int n = e / CP;
+    const int c = e % CP;
+    objs[e] = c < C ? obj[n * C + c] : 0.f;
   }
   for (int c = threadIdx.x; c < CP; c += kThreads) {
-    bts[c] = c < C ? bt[c] : 0.f;
     wzs[c] = c < C ? wz[c] : 0.f;
   }
   __syncthreads();
 
-  // q = (Wt + I)^T conf + bt
-  float qr[CP];
-  float acc[CP];
-#pragma unroll
-  for (int o = 0; o < CP; ++o) {
-    qr[o] = bts[o];
-    acc[o] = 0.f;
-  }
-#pragma unroll 1
-  for (int c = 0; c < C; ++c) {
-    const float x = live ? confb[static_cast<size_t>(c) * P + p] : 0.f;
-    const float4* wr = reinterpret_cast<const float4*>(ks + c * CP);
-#pragma unroll
-    for (int o4 = 0; o4 < CP / 4; ++o4) {
-      const float4 w = wr[o4];
-      qr[4 * o4 + 0] = fmaf(w.x, x, qr[4 * o4 + 0]);
-      qr[4 * o4 + 1] = fmaf(w.y, x, qr[4 * o4 + 1]);
-      qr[4 * o4 + 2] = fmaf(w.z, x, qr[4 * o4 + 2]);
-      qr[4 * o4 + 3] = fmaf(w.w, x, qr[4 * o4 + 3]);
-    }
-  }
-
-  float m = -INFINITY;  // running max of the scores
-  float l = 0.f;        // running softmax denominator, relative to m
-  const float* kb = k + static_cast<size_t>(b) * K * C;
-  const float* vb = v + static_cast<size_t>(b) * K * C;
-
-  for (int j0 = 0; j0 < K; j0 += kKeyTile) {
-    const int nk = min(kKeyTile, K - j0);
-    __syncthreads();  // Wt or the previous tile is no longer read
-    for (int e = threadIdx.x; e < kKeyTile * CP; e += kThreads) {
-      const int j = e / CP;
-      const int c = e % CP;
-      const bool ok = j < nk && c < C;
-      const size_t g = static_cast<size_t>(j0 + j) * C + c;
-      ks[e] = ok ? kb[g] : 0.f;
-      vs[e] = ok ? vb[g] : 0.f;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < nk; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * CP);
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-      for (int c4 = 0; c4 < CP / 4; ++c4) {
-        const float4 kk = kr[c4];
-        s0 = fmaf(kk.x, qr[4 * c4 + 0], s0);
-        s1 = fmaf(kk.y, qr[4 * c4 + 1], s1);
-        s2 = fmaf(kk.z, qr[4 * c4 + 2], s2);
-        s3 = fmaf(kk.w, qr[4 * c4 + 3], s3);
-      }
-      const float s = (s0 + s1) + (s2 + s3);
-      if (s > m) {
-        const float corr = expf(m - s);  // 0 on the first key
-        l *= corr;
-#pragma unroll
-        for (int c = 0; c < CP; ++c) acc[c] *= corr;
-        m = s;
-      }
-      const float w = expf(s - m);
-      l += w;
-      const float4* vr = reinterpret_cast<const float4*>(vs + j * CP);
-#pragma unroll
-      for (int c4 = 0; c4 < CP / 4; ++c4) {
-        const float4 vv = vr[c4];
-        acc[4 * c4 + 0] = fmaf(w, vv.x, acc[4 * c4 + 0]);
-        acc[4 * c4 + 1] = fmaf(w, vv.y, acc[4 * c4 + 1]);
-        acc[4 * c4 + 2] = fmaf(w, vv.z, acc[4 * c4 + 2]);
-        acc[4 * c4 + 3] = fmaf(w, vv.w, acc[4 * c4 + 3]);
-      }
-    }
-  }
-
-  // obj replaces the last key tile
-  __syncthreads();
-  for (int e = threadIdx.x; e < N * CP; e += kThreads) {
-    const int n = e / CP;
-    const int c = e % CP;
-    ks[e] = c < C ? obj[n * C + c] : 0.f;
-  }
-  __syncthreads();
-  if (!live) return;
-
-  // novel = conf + delta * wz, normalised; padded classes stay 0
-  const float inv_l = 1.f / l;
+  // anchor i of the block, by threads i and i + 64
+  const int i = threadIdx.x % kRows;
+  const int p = p0 + i;
+  if (p >= P) return;
+  const float* confp = conf + static_cast<size_t>(b) * C * P + p;
+  float nv[CP];
   float ss = 0.f;
 #pragma unroll
   for (int c = 0; c < CP; ++c) {
-    const float x =
-        c < C ? confb[static_cast<size_t>(c) * P + p] : 0.f;
-    acc[c] = x + acc[c] * inv_l * wzs[c];
-    ss = fmaf(acc[c], acc[c], ss);
+    const float x = c < C ? confp[static_cast<size_t>(c) * P] : 0.f;
+    nv[c] = x + smem[c * kStageStride + i] * wzs[c];
+    ss = fmaf(nv[c], nv[c], ss);
   }
-  const float inv = rsqrtf(ss);
+  const float rn = rsqrtf(ss);
 #pragma unroll
-  for (int c = 0; c < CP; ++c) acc[c] *= inv;
+  for (int c = 0; c < CP; ++c) nv[c] *= rn;
 
-  float* outb = out + static_cast<size_t>(b) * N * P;
-  for (int n = 0; n < N; ++n) {
-    const float4* orow = reinterpret_cast<const float4*>(ks + n * CP);
+  float* outp = out + static_cast<size_t>(b) * N * P + p;
+  for (int n = threadIdx.x / kRows; n < N; n += kThreads / kRows) {
+    const float4* orow = reinterpret_cast<const float4*>(objs + n * CP);
     float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
     for (int c4 = 0; c4 < CP / 4; ++c4) {
       const float4 w = orow[c4];
-      s0 = fmaf(w.x, acc[4 * c4 + 0], s0);
-      s1 = fmaf(w.y, acc[4 * c4 + 1], s1);
-      s2 = fmaf(w.z, acc[4 * c4 + 2], s2);
-      s3 = fmaf(w.w, acc[4 * c4 + 3], s3);
+      s0 = fmaf(w.x, nv[4 * c4 + 0], s0);
+      s1 = fmaf(w.y, nv[4 * c4 + 1], s1);
+      s2 = fmaf(w.z, nv[4 * c4 + 2], s2);
+      s3 = fmaf(w.w, nv[4 * c4 + 3], s3);
     }
-    outb[static_cast<size_t>(n) * P + p] = ((s0 + s1) + (s2 + s3)) * scale;
+    outp[static_cast<size_t>(n) * P] = ((s0 + s1) + (s2 + s3)) * scale;
   }
 }
 
@@ -201,11 +225,11 @@ extern "C" int ct_attention_serving_f32(const void* conf, const void* k,
                                         const void* obj, void* out, int B,
                                         int C, int P, int K, int N,
                                         float scale, void* stream) {
-  if (B <= 0 || C <= 0 || C > 64 || P <= 0 || K <= 0 || N <= 0 || N > 64 ||
-      B > 65535) {
+  if (B <= 0 || C <= 0 || C > 64 || P <= 0 || K <= 0 || N <= 0 ||
+      N > kMaxN || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((P + kThreads - 1) / kThreads, B);
+  const dim3 grid((P + kRows - 1) / kRows, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* cf = static_cast<const float*>(conf);
   const float* kf = static_cast<const float*>(k);

@@ -125,7 +125,8 @@ def nms_mask(
     if k > MAX_NMS_K:
         raise ValueError(f"nms_mask: K={k} candidates, the kernel takes at "
                          f"most {MAX_NMS_K}")
-    keep = torch.zeros(valid.shape, dtype=torch.bool, device=boxes.device)
+    # the kernel writes every entry: no fill
+    keep = torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
     n = keep.numel() // max(k, 1)
     if n and k:
         kernels.launch(nms_mask, "nms_mask",

@@ -15,10 +15,14 @@ plain version on the same card, f32 with TF32 off:
   ``F.relu`` then ``F.max_pool2d`` on tie-heavy inputs;
 * ``ct_attention_serving`` (the fused serving CT head): max |Δ| ≤ 1e-4 of
   the largest score, against its plain version (sums over up to 1,858 keys
-  and the θ and classifier products in another order);
+  and the θ and classifier products in another order), also at the edges
+  of the forwards' walk that it runs (P = 63, 64, 65; K = 1, 31, 32, 33;
+  C = 7, 16, 17, 64; N = 1, 64), and two launches give the same bits;
 * ``nms_mask`` (the NMS kernel): the keep mask equal, bit for bit, to the
   plain fixpoint loop's on the card and on the CPU, on seeded and
-  tie-heavy boxes; ``batched_nms`` on the card equal to the CPU's;
+  tie-heavy boxes, at K = 1, 32, 33 and 1,024 with rows of no candidate
+  and of one box repeated, the same twice; ``batched_nms`` on the card
+  equal to the CPU's;
 * ``ct_attention_cm_bwd`` (the blockwise backward) and the row-major
   ``ct_attention`` / ``ct_attention_bwd``: max |Δ| ≤ 1e-4 on the forward,
   ≤ 1e-4 · max |plain| per gradient (dwz too), and the autograd paths run
@@ -280,6 +284,29 @@ def test_serving_kernel_matches_plain_version(cuda, b, c, p, k, n):
     assert ct_attention_serving.launches == before + 1
     assert out.shape == (b, n, p)
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(out, ct_attention_serving(*args))
+
+
+# the serving head's walk is the forwards': 64 anchors a block, keys 32 at a
+# time, CP=16 for C <= 16 and 64 for C = 17..64; each P with each K, each C
+# with the narrowest and the widest classifier
+SERVING_EDGE_SHAPES = [
+    (1, 7, 63, 1, 1), (2, 16, 63, 31, 64), (1, 17, 63, 32, 1),
+    (2, 64, 63, 33, 64), (2, 7, 64, 31, 64), (1, 16, 64, 32, 1),
+    (2, 17, 64, 33, 64), (1, 64, 64, 1, 1), (1, 7, 65, 32, 64),
+    (2, 16, 65, 33, 1), (1, 17, 65, 1, 64), (2, 64, 65, 31, 1)]
+
+
+@pytest.mark.parametrize("b,c,p,k,n", SERVING_EDGE_SHAPES)
+def test_serving_kernel_at_tile_edges(cuda, b, c, p, k, n):
+    args = serving_inputs(c * p + k + n, b, c, p, k, n, cuda)
+    first = ct_attention_serving(*args)
+    second = ct_attention_serving(*args)
+    ref = ct_attention_serving_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert first.shape == (b, n, p)
+    assert (first - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
 def nms_case(seed, n, k, device, ties):
@@ -309,6 +336,23 @@ def test_nms_kernel_keep_mask_is_the_plain_one(cuda, n, k, offset, ties):
     assert torch.equal(keep, nms_mask_reference(boxes, valid, 0.45, offset))
     assert torch.equal(keep.cpu(), nms_mask(boxes.cpu(), valid.cpu(), 0.45,
                                             offset))
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 1024])
+def test_nms_kernel_at_word_edges(cuda, k):
+    # K below, at and past a 32-candidate word, and the kernel's largest;
+    # a row of no candidate, a row of one box repeated
+    boxes, valid = nms_case(k + 11, 12, k, cuda, True)
+    valid[0] = False
+    boxes[1] = boxes[1, :1]
+    valid[1] = True
+    first = nms_mask(boxes, valid, 0.45, 1.0)
+    second = nms_mask(boxes, valid, 0.45, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, nms_mask_reference(boxes, valid, 0.45, 1.0))
+    assert not first[0].any()
+    assert first[1, 0] and first[1].sum().item() == 1
 
 
 def test_batched_nms_on_the_card_matches_the_cpu(cuda):

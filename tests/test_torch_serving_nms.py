@@ -14,6 +14,12 @@
 * ``nms_mask`` on CPU tensors is the plain fixpoint loop, which equals the
   JAX package's Pallas kernel (interpret mode) and its greedy oracle
   ``nms_numpy``, and records its sweeps.
+* The NMS kernel's blocked scan (``csrc/nms.cu``), modelled in torch: the
+  suppression mask as 32-bit words, each word's own 32×32 diagonal block
+  resolved with bit operations, then the kept candidates' words ORed into
+  the removed set; equal to the plain loop's mask on tie-heavy rows at K on
+  both sides of a word's edge and at the kernel's largest K, with
+  all-invalid rows and rows of one box repeated.
 """
 
 import jax.numpy as jnp
@@ -30,7 +36,8 @@ from ct_tpu_torch.eval import make_eval_step
 from ct_tpu_torch.models.rfbnet import build_net
 from ct_tpu_torch.ops import detection
 from ct_tpu_torch.ops.nms import (
-    batched_nms, grouped_topk, nms_mask, nms_mask_reference,
+    MAX_NMS_K, _pairwise_iou_offset, batched_nms, grouped_topk, nms_mask,
+    nms_mask_reference,
 )
 from ct_tpu_torch.ops.priors import prior_boxes
 from test_torch_eval import assert_dets_equal, tie_heavy_scores
@@ -135,3 +142,58 @@ def test_full_size_priors_serving_nms_matches_jax():
         ours = batched_nms(torch.from_numpy(boxes),
                            torch.from_numpy(scores), **kw)
         assert_dets_equal(ours, ref)
+
+
+def blocked_scan(boxes, valid, iou_threshold, pixel_offset):
+    """The NMS kernel's mask and scan in torch, rows [N, K] at once → keep
+    [N, K]. Word w of row j holds bits i = 32w .. 32w+31 of sup[j, i]; per
+    word jb: alive = valid and not removed; candidate t of the word, when
+    reached alive, is kept and clears the later ones it suppresses (the
+    word's diagonal block); then each later word w ORs in word w of every
+    kept candidate."""
+    n, k = valid.shape
+    w = -(-k // 32)
+    idx = torch.arange(k)
+    sup = ((_pairwise_iou_offset(boxes, pixel_offset) > iou_threshold)
+           & (idx[:, None] < idx[None, :]))
+    sup = torch.nn.functional.pad(sup, (0, 32 * w - k, 0, 32 * w - k))
+    bit = torch.arange(32)
+    words = (sup.view(n, 32 * w, w, 32).long() << bit).sum(-1)  # [N, 32W, W]
+    vwords = (torch.nn.functional.pad(valid, (0, 32 * w - k))
+              .view(n, w, 32).long() << bit).sum(-1)              # [N, W]
+    removed = torch.zeros(n, w, dtype=torch.long)
+    later = torch.arange(w)
+    keep = []
+    for jb in range(w):
+        alive = vwords[:, jb] & ~removed[:, jb]
+        for t in range(32):
+            hit = ((alive >> t) & 1).bool()
+            alive = torch.where(hit, alive & ~words[:, 32 * jb + t, jb],
+                                alive)
+        kept = ((alive[:, None] >> bit) & 1).bool()                # [N, 32]
+        for t in range(32):
+            row = torch.where(kept[:, t, None] & (later > jb),
+                              words[:, 32 * jb + t], 0)
+            removed = removed | row
+        keep.append(kept)
+    return torch.cat(keep, 1)[:, :k]
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 200, MAX_NMS_K])
+def test_blocked_scan_is_the_plain_mask(k):
+    rng = np.random.default_rng(k + 7)
+    n = 6
+    centers = rng.uniform(0, 40, (n, k, 2))
+    half = rng.uniform(2, 12, (n, k, 2))
+    boxes = np.round(np.concatenate([centers - half, centers + half], -1))
+    valid = rng.uniform(size=(n, k)) < 0.9
+    valid[0] = False                      # a row of no candidate
+    boxes[1] = boxes[1, :1]               # one box repeated, all valid
+    valid[1] = True
+    boxes = torch.from_numpy(boxes.astype(np.float32))
+    valid = torch.from_numpy(valid)
+    for offset in (1.0, 0.0):
+        plain = nms_mask_reference(boxes, valid, 0.45, offset)
+        assert torch.equal(blocked_scan(boxes, valid, 0.45, offset), plain)
+    assert not plain[0].any()
+    assert plain[1].sum() == 1 and plain[1, 0]

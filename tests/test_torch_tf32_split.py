@@ -35,6 +35,14 @@ stats pass's colsum within ``BWD_TOL`` of its largest entry; a single TF32
 pass lies outside the band. The bfloat16-exponent variant's weights
 e = bf16(exp(bf16(s - m))) have 8 significant bits, so their small part is
 0 and e·v needs two products, not three, bit for bit.
+
+The serving head (``ct_attention_serving.cu``) runs that walk too, after a
+prologue that forms q = conf·(Wθ + I) + bθ on the tensor cores, and ends in
+the residual, the ℓ2 norm and the classifier in float32. Emulated at C=60,
+N=20 on the card check's serving inputs: within ``SERVING_TOL`` of the
+largest score with the θ product in 3xTF32, and outside it with a single
+TF32 θ product, which rounds conf (the residual folded into θ) itself by
+2⁻¹¹.
 """
 
 import functools
@@ -302,3 +310,73 @@ def test_bf16_weights_need_two_products():
     vh = tf32(vt)
     two = vh @ e + tf32_truncated(vt - vh) @ e
     assert torch.equal(mm_split(vt, e), two)
+
+
+SERVING_TOL = 1e-4  # chip_smoke.py's band for the serving head
+N_NOVEL = 20        # the transfer head's classifier (VOC's 20 classes)
+
+
+def stepwise_split(a, b, split: bool = True):
+    """a @ b as a chain of m16n8k8 products over the inner dimension in
+    steps of 8, the accumulator kept across steps: per step the 3xTF32
+    terms (small·big, big·small, big·big; or, without ``split``, big·big
+    alone), each added exactly and rounded toward zero to f32, as the
+    tensor cores leave their accumulator."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
+    for k0 in range(0, a.shape[1], 8):
+        x, y = a[:, k0:k0 + 8], b[k0:k0 + 8]
+        xh, yh = tf32(x), tf32(y)
+        terms = [(xh, yh)]
+        if split:
+            terms = [(tf32_truncated(x - xh), yh),
+                     (xh, tf32_truncated(y - yh)), (xh, yh)]
+        for u, w in terms:
+            acc = truncated_to_f32(acc + u.double() @ w.double()).double()
+    return acc.float()
+
+
+@functools.cache
+def serving_errors():
+    """The serving head as its kernel computes it, one image at C=60,
+    N=20, on the card check's inputs (conf normal × 3, k × 0.3, v normal,
+    Wθ × 0.2, bθ × 0.1, wz × 0.3, OBJ normal): q = conf·(Wθ + I) + bθ on
+    the tensor cores (3xTF32, or a single TF32 product), the forward's walk
+    in 3xTF32, the residual, the ℓ2 norm and the classifier in float32;
+    max |Δ| over the largest score against float64."""
+    rng = np.random.default_rng(5)
+    t = lambda *shape, scale=1.0: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32) * scale)
+    conf, k, v = t(C, P, scale=3.0), t(K, C, scale=0.3), t(K, C)
+    wt, bt, wz = t(C, C, scale=0.2), t(C, scale=0.1), t(C, scale=0.3)
+    obj = t(N_NOVEL, C)
+    with torch.no_grad():
+        d = [x.double() for x in (conf, k, v, wt, bt, wz, obj)]
+        q64 = d[3].T @ d[0] + d[4][:, None] + d[0]
+        s64 = d[1] @ q64
+        e64 = torch.exp(s64 - s64.amax(dim=0))
+        novel64 = d[0] + (d[2].T @ e64) / e64.sum(dim=0) * d[5][:, None]
+        novel64 = novel64 / novel64.norm(dim=0)
+        ref = d[6] @ novel64 * 5.0
+        w1 = wt + torch.eye(C)
+        out = {}
+        for name, split in (("split", True), ("single", False)):
+            # the θ product with anchors as rows: [P, C] @ [C, C]
+            q = stepwise_split(conf.T, w1, split).T + bt[:, None]
+            delta, _, _ = forward(q, k, v, mm_split)
+            novel = conf + delta * wz[:, None]
+            novel = novel * torch.rsqrt((novel * novel).sum(dim=0))
+            score = obj @ novel * 5.0
+            out[name] = ((score.double() - ref).abs().max()
+                         / ref.abs().max()).item()
+    return out
+
+
+def test_three_pass_tf32_serving_head_is_within_the_band():
+    out = serving_errors()
+    assert out["split"] <= SERVING_TOL, out
+
+
+def test_single_pass_tf32_theta_is_outside_the_serving_band():
+    out = serving_errors()
+    assert out["single"] > SERVING_TOL, out
+    assert out["single"] > 10 * out["split"], out
