@@ -86,12 +86,29 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
 6. transfer phase-2 transfer (C=60) from seeded weights: 1 warm-up and 3
            timed steps at batch 64 with each backward (images/s, peak
            memory, launches, finite losses).
-7. bench   the port's kernel benches (``ct_tpu_torch/scripts``): the
+7. train_cli phase-2 training through the train CLI on the VOC fixture
+           (``.parity_p2/voc``, real JPEGs), as ``train.py`` trains: first
+           the device augmentation and mixup on the card against the same
+           apply functions on the CPU with the same parameters, at batch
+           64 (384² canvases → 300), with their ms per batch; then
+           ``python -m ct_tpu_torch.train`` in process from
+           ``ref_model.pth``: incre, split 1, 5 shots, --device-augment
+           --mixup, batch 64, 2 OBJ_Target init batches, 26 iterations
+           (mixup off for the last 6), with the launches of the training
+           kernels; finite losses and ``metrics.json`` rows at the write
+           points after iterations 20 and 25 (iteration time and loader
+           wait: the rows' medians); then the eval CLI scores
+           ``model_final.pth`` on the 500 test images (mAP above 0.5, a
+           sanity floor, with the eval kernels' launches); then
+           ``scripts/bench_pipeline.py``'s three rates at a few
+           iterations. The CLIs' output goes to
+           build/chip_smoke/train_cli_*.txt and bench_pipeline.txt.
+8. bench   the port's kernel benches (``ct_tpu_torch/scripts``): the
            attention forward bench at B=128, the backward bench at 300
            (B=64) and 512 (B=16), the bias+ReLU backward bench, few
            iterations each, with the launches of their kernels; their
            lines go to build/chip_smoke/bench_*.txt.
-8. kernels one line listing every kernel of the port with its launches
+9. kernels one line listing every kernel of the port with its launches
            on its path's phase, error and times.
 
 Any failure raises and exits non-zero with no "ok" line. The last line is
@@ -163,6 +180,18 @@ CT_PARAMS = ("theta.", "phi.", "g.", "Wz", "OBJ_Target.")
 DBIAS_TOL = 1e-5
 # the attention benches' batches: the forward bench's and the backward's
 BENCH_FWD_BATCH, BENCH_BWD_BATCH = 128, 64
+# the device augmentation on the card against the CPU from the same
+# parameters: the bands the CPU tests hold it to against JAX (images on
+# the 0-255 scale, after a resample whose f32 sums run in another order;
+# boxes; mixup relative to 255)
+AUGMENT_IMG_TOL = 2e-3
+AUGMENT_BOX_TOL = 1e-6
+MIXUP_TOL = 1e-6
+VOC_ROOT = os.path.join(".parity_p2", "voc", "VOCdevkit")
+# the train CLI phase: 26 iterations from ref_model.pth, then its 500-image
+# eval must score above this (a sanity floor, not a parity gate)
+TRAIN_CLI_ITERS = 26
+TRAIN_CLI_MAP_FLOOR = 0.5
 
 
 def emit(obj) -> None:
@@ -1334,6 +1363,167 @@ def phase_transfer(seed: int) -> dict:
     return res
 
 
+def to_cpu(params):
+    """A parameter record of ``data/augment_device.py`` with its tensors on
+    the CPU."""
+    import dataclasses
+
+    return dataclasses.replace(params, **{
+        f.name: getattr(params, f.name).cpu()
+        for f in dataclasses.fields(params)})
+
+
+def augment_card_vs_cpu(seed: int) -> dict:
+    """The device augmentation and mixup at batch 64 on the card against
+    the same apply functions on the CPU, from the parameters drawn on the
+    card; and their ms per batch on the card (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from ct_tpu_torch.data import augment_device as D
+
+    b, canvas = TRAIN_BATCH, 384
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.integers(0, 256, (b, 3, canvas, canvas),
+                                           dtype=np.uint8))
+    cpu = seeded_targets(seed + 70, b)
+    card = {k: v.cuda() for k, v in cpu.items()}
+    card_images = images.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    photo, geom = D.sample_augment(gen, card["boxes"], card["valid"])
+    out = D.apply_augment(card_images, card["boxes"], card["labels"],
+                          card["valid"], photo, geom)
+    ref = D.apply_augment(images, cpu["boxes"], cpu["labels"], cpu["valid"],
+                          to_cpu(photo), to_cpu(geom))
+    res = {"batch": b, "canvas": canvas,
+           "image_max_abs_err": (out["image"].cpu() - ref["image"]).abs()
+           .max().item(),
+           "box_max_abs_err": (out["boxes"].cpu() - ref["boxes"]).abs()
+           .max().item(),
+           "valid_equal": torch.equal(out["valid"].cpu(), ref["valid"]),
+           "boxes_kept": int(ref["valid"].sum()),
+           "boxes_in": int(cpu["valid"].sum())}
+    lam, offset = D.sample_mixup(np.random.default_rng(seed), b)
+    mixed = D.apply_mixup(dict({k: v.cuda() for k, v in ref.items()},
+                               weights=card["weights"]),
+                          torch.from_numpy(lam).cuda(), offset, True)
+    mixed_ref = D.apply_mixup(dict(ref, weights=cpu["weights"]),
+                              torch.from_numpy(lam), offset, True)
+    res["mixup_max_abs_err"] = max(
+        (mixed[k].cpu().float() - mixed_ref[k].float()).abs().max().item()
+        / (255.0 if k == "image" else 1.0) for k in mixed)
+    res["augment_ms"] = cuda_ms(lambda: D.augment_batch(
+        gen, card_images, card["boxes"], card["labels"], card["valid"]), 5)
+    batch = dict(out, weights=card["weights"])
+    res["mixup_ms"] = cuda_ms(lambda: D.mixup_batch(
+        np.random.default_rng(seed), batch, zero_ignored=True), 5)
+    if not (res["image_max_abs_err"] <= AUGMENT_IMG_TOL
+            and res["box_max_abs_err"] <= AUGMENT_BOX_TOL
+            and res["valid_equal"] and res["mixup_max_abs_err"] <= MIXUP_TOL
+            and torch.equal(out["labels"].cpu(), ref["labels"])):
+        raise AssertionError(f"the device augmentation on the card "
+                             f"disagrees with the CPU: {res}")
+    return res
+
+
+class Captured:
+    """Standard output, and the logging the port's CLIs set up on it, into
+    ``path`` for the enclosed block; the CLIs' log handlers are closed
+    after it."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        import contextlib
+
+        self.file = open(self.path, "w")
+        self.redirect = contextlib.redirect_stdout(self.file)
+        self.redirect.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        self.redirect.__exit__(*exc)
+        for handler in logging.root.handlers[:]:
+            logging.root.removeHandler(handler)
+            handler.close()
+        self.file.close()
+
+
+def phase_train_cli(seed: int, out_dir: str) -> dict:
+    """Phase-2 training through the train CLI on the VOC fixture with the
+    device augmentation and mixup, its 500-image eval through the eval
+    CLI, and the pipeline bench; the augmentation on the card against the
+    CPU first."""
+    import json
+
+    from ct_tpu_torch import test as eval_cli
+    from ct_tpu_torch.ops.ct_attention import ct_attention_cm
+    from ct_tpu_torch.ops.nms import nms_mask
+    from ct_tpu_torch.scripts import bench_pipeline
+    from ct_tpu_torch.train import cli as train_cli
+
+    res = {"augment_card_vs_cpu": augment_card_vs_cpu(seed)}
+    save = os.path.join(out_dir, "train_cli")
+    if os.path.exists(save):
+        import shutil
+
+        shutil.rmtree(save)
+    os.makedirs(save)
+    os.environ["VOC_ROOT"] = VOC_ROOT
+    counts = training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with Captured(os.path.join(out_dir, "train_cli_train.txt")):
+        last = train_cli.main([
+            "-p", "2", "--setting", "incre", "--split", "1", "--shot", "5",
+            "--device-augment", "--mixup", "-b", str(TRAIN_BATCH),
+            "--init-iter", "2", "--max-iter", str(TRAIN_CLI_ITERS),
+            "--no-mixup-iter", "6", "--warmup-iter", "0", "--steps", "20",
+            "--load-file", REF_MODEL,
+            "--save-folder", save])
+    res["train_s"] = time.perf_counter() - t0
+    res["train_launches"] = {n: fn.launches for n, fn in counts.items()}
+    used = ("ct_attention_cm_stats", "ct_attention_cm_bwd_flash",
+            "pool2x2_relu_fwd", "pool2x2_relu_bwd")
+    with open(os.path.join(save, "metrics.json")) as f:
+        rows = [json.loads(line) for line in f]
+    res["last"] = last
+    res["metrics_rows"] = rows
+    if not (all(res["train_launches"][n] > 0 for n in used)
+            and [r["iteration"] for r in rows] == [21, TRAIN_CLI_ITERS]
+            and all(math.isfinite(v) for r in rows + [last]
+                    for v in r.values())):
+        raise AssertionError(f"the train CLI run is wrong: {res}")
+    res["iteration_s_median"] = rows[-1]["time"]
+    res["loader_wait_s_median"] = rows[-1]["data_time"]
+    res["images_per_s"] = TRAIN_BATCH / rows[-1]["time"]
+
+    eval_counts = {"ct_attention_cm": ct_attention_cm, "nms_mask": nms_mask}
+    for fn in eval_counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with Captured(os.path.join(out_dir, "train_cli_eval.txt")):
+        scores = eval_cli.main([
+            "-p", "2", "--setting", "incre", "--split", "1",
+            "--load-file", os.path.join(save, "model_final.pth"),
+            "--save-folder", save])
+    res["eval_s"] = time.perf_counter() - t0
+    res["eval_launches"] = {n: fn.launches for n, fn in eval_counts.items()}
+    res["mAP"], res["novel_mAP"] = scores["mAP"], scores["novel_mAP"]
+    if not (scores["mAP"] > TRAIN_CLI_MAP_FLOOR
+            and all(res["eval_launches"].values())):
+        raise AssertionError(f"the trained model's eval is wrong: {res}")
+
+    with Captured(os.path.join(out_dir, "bench_pipeline.txt")):
+        res["bench_pipeline"] = bench_pipeline.main(["--iters", "5",
+                                                     "--mixup"])
+    return res
+
+
 def phase_bench(out_dir: str) -> dict:
     """The port's three kernel benches at 300 (and the backward bench at
     512), few iterations each, their printed lines to ``out_dir``; the
@@ -1600,6 +1790,8 @@ def main(argv=None) -> int:
                                                        PROFILE_DIR)),
                      ("train", lambda: phase_train(args.seed, PROFILE_DIR)),
                      ("transfer", lambda: phase_transfer(args.seed)),
+                     ("train_cli", lambda: phase_train_cli(args.seed,
+                                                           PROFILE_DIR)),
                      ("bench", lambda: phase_bench(PROFILE_DIR))):
         t0 = time.perf_counter()
         results[name] = fn()

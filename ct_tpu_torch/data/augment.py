@@ -6,8 +6,10 @@ photometric distortion, a mean-filled expand (probability 0.6), a
 horizontal flip and a resize with a random interpolation followed by BGR
 mean subtraction, falling back to the unaugmented image when nothing
 usable is left. It draws from Python's ``random``, with the JAX package's
-probabilities and order of draws. ``cv2`` is imported inside the functions
-that use it.
+probabilities and order of draws. ``RawCanvasTransform`` (the port of
+``ct_tpu/data/augment.py``'s) is the host half of the device
+augmentation instead: a resize to a square canvas. ``cv2`` is imported
+inside the functions that use it.
 """
 
 from __future__ import annotations
@@ -196,3 +198,24 @@ class TrainAugment:
             img_out = resize_subtract(image, self.size, self.means)
             return img_out, fallback_targets
         return img_out, np.hstack([boxes, labels[:, None]])
+
+
+class RawCanvasTransform:
+    """The host half of the device augmentation: resize to a square
+    working canvas (bilinear, pixels stay uint8 BGR), boxes to percent
+    coordinates. ``data/augment_device.py`` does all the random work on
+    the device."""
+
+    def __init__(self, canvas: int):
+        self.canvas = canvas
+
+    def __call__(self, image, targets):
+        import cv2
+
+        h, w, _ = image.shape
+        out = cv2.resize(image, (self.canvas, self.canvas),
+                         interpolation=cv2.INTER_LINEAR)
+        boxes = targets[:, :4].copy().astype(np.float64)
+        boxes[:, 0::2] /= w
+        boxes[:, 1::2] /= h
+        return out, np.hstack([boxes, targets[:, 4:5]])

@@ -3,8 +3,9 @@
 The port of ``Loader`` (``ct_tpu/data/loader.py``) with thread workers
 (process workers are not ported). Batches are dicts of numpy arrays:
 
-  image [B,S,S,3] f32 (HWC) · boxes [B,M,4] · labels [B,M] · weights [B,M]
-  · valid [B,M]
+  image [B,S,S,3] (HWC, the samples' own dtype: float32 from the host
+  augmentation, uint8 canvases for the device one) · boxes [B,M,4] ·
+  labels [B,M] · weights [B,M] · valid [B,M]
 
 Samples are put back into sequence order before they are collated, so for
 one seed the batch stream does not depend on the number of workers. The
@@ -18,6 +19,7 @@ import threading
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from ct_tpu_torch.data.targets import pad_targets
 from ct_tpu_torch.train.sampler import TrainingSampler
@@ -30,6 +32,17 @@ def _put(q: queue.Queue, item, stop: threading.Event) -> None:
             return
         except queue.Full:
             continue
+
+
+def to_device(array, device) -> torch.Tensor:
+    """A host array (or tensor) on ``device``. Onto the card it goes
+    through pinned memory without blocking, so the host does not wait for
+    the work already queued there."""
+    t = torch.as_tensor(array)
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class Loader:
@@ -130,8 +143,8 @@ class Loader:
 
     def _collate(self, samples) -> Dict[str, np.ndarray]:
         padded = pad_targets([s[1] for s in samples], self.max_objs)
-        return {"image": np.stack([s[0] for s in samples]).astype(
-                    np.float32, copy=False),
+        # the images keep their dtype: uint8 canvases ship 4x fewer bytes
+        return {"image": np.stack([s[0] for s in samples]),
                 "boxes": padded.boxes, "labels": padded.labels,
                 "weights": padded.weights, "valid": padded.valid}
 

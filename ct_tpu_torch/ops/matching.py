@@ -49,8 +49,7 @@ def match_batch(
     valid = gt_valid.bool()
 
     overlaps = box_ops.iou(gt_boxes, box_ops.point_form(priors_cs))  # [B,M,P]
-    overlaps = torch.where(valid[..., None], overlaps,
-                           overlaps.new_tensor(-1.0))
+    overlaps = torch.where(valid[..., None], overlaps, -1.0)
 
     # best gt per prior (first of equal overlaps)
     best_truth_overlap = overlaps.amax(dim=1)                 # [B, P]
@@ -66,8 +65,7 @@ def match_batch(
                                reduce="amax")
     forced = claimed_by >= 0
     best_truth_idx = torch.where(forced, claimed_by, best_truth_idx)
-    best_truth_overlap = torch.where(
-        forced, best_truth_overlap.new_tensor(2.0), best_truth_overlap)
+    best_truth_overlap = torch.where(forced, 2.0, best_truth_overlap)
 
     matched = torch.gather(gt_boxes, 1,
                            best_truth_idx[..., None].expand(b, num_priors, 4))
@@ -76,7 +74,7 @@ def match_batch(
 
     below = best_truth_overlap < threshold
     cls_t = torch.where(below, 0, cls_t)
-    w_t = torch.where(below, w_t.new_tensor(1.0), w_t)
+    w_t = torch.where(below, 1.0, w_t)
 
     loc_t = box_ops.encode(matched, priors_cs, variances)
     return MatchResult(loc_t, cls_t, w_t, cls_t != 0)

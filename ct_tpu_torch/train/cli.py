@@ -2,17 +2,32 @@
 
     python -m ct_tpu_torch.train -d VOC -p 2 --setting incre --split 1 \\
         --shot 5 --mixup --load-file weights/phase1.pth \\
-        --save-folder weights/ [--device cuda|cpu]
+        --save-folder weights/ [--device-augment --canvas 384] \\
+        [--profile-dir trace/] [--device cuda|cpu]
 
-The same phase/setting/method state machine as ``train.py``: the training
-set of the few-shot protocol, weights loaded from ``--basenet`` (phase 1)
-or ``--load-file`` (phase 2, weights only) or resumed from the newest
-checkpoint with ``--resume``, the ``OBJ_Target`` initialisation over
-``--init-iter`` batches before mixup is turned on (phase 2 ``ours``),
+The same phase/setting/method state machine and loop as ``train.py``: the
+training set of the few-shot protocol, weights loaded from ``--basenet``
+(phase 1) or ``--load-file`` (phase 2, weights only) or resumed from the
+newest checkpoint with ``--resume``, the ``OBJ_Target`` initialisation
+over ``--init-iter`` batches before mixup is turned on (phase 2 ``ours``),
 mixup off for the last ``--no-mixup-iter`` iterations, checkpoints every
 ``--checkpoint-period`` iterations and at the end (``.pth``, which the
-port's eval CLI loads), one loss line per iteration on the log and the
-same keys as one JSON line per iteration in ``metrics.json``.
+port's eval CLI loads).
+
+``--device-augment``: the loader only resizes each image to a
+``--canvas``² uint8 canvas; the augmentation (and, with ``--mixup``, a
+batch-level mixup in place of the dataset's) runs batched on the device
+(``data/augment_device.py``), from generators seeded per iteration.
+``init_reweight`` then sees augmented, never-mixed batches from a
+generator of its own.
+
+Metrics: the losses stay on the device and are fetched together at each
+write point (after 5 iterations, every 20 and at the last), where the
+smoothed scalars go to the log, ``metrics.json`` and TensorBoard
+(``train/events.py``): the losses, ``lr``, ``time`` (the whole
+iteration: loader, augmentation and step, ``StepTimer``) and
+``data_time`` (the wait in ``loader.next()``). ``--profile-dir`` traces
+iterations 10–14 after the start (``utils/profiler.py``).
 
 The VOC root comes from ``VOC_ROOT`` (default ``data/VOCdevkit``). As in
 the reference, ``CT_ATTENTION_FLASH=0`` trains the CT attention with its
@@ -24,7 +39,6 @@ ROADMAP item that will port it.
 from __future__ import annotations
 
 import argparse
-import json
 import logging
 import os
 import sys
@@ -37,15 +51,9 @@ logger = logging.getLogger("ct_tpu_torch.train")
 # flag → (is it set?, the ROADMAP item that will port it)
 UNPORTED = (
     ("--bf16", lambda a: a.bf16, "Queue 1 item 4 (bf16 training)"),
-    ("--device-augment", lambda a: a.device_augment,
-     "Queue 1 item 6 (device augmentation)"),
-    ("--canvas", lambda a: a.canvas is not None,
-     "Queue 1 item 6 (device augmentation)"),
     ("--orbax", lambda a: a.orbax, "Queue 1 item 8 (async checkpoints)"),
     ("--pallas-ct", lambda a: a.pallas_ct is not None,
      "none: the port always runs its CT kernels on the card"),
-    ("--profile-dir", lambda a: a.profile_dir is not None,
-     "Queue 1 item 8 (torch.profiler)"),
     ("--fused-opt on", lambda a: a.fused_opt == "on",
      "Queue 1 item 4 (fused optimizer)"),
     ("--accum-steps > 1", lambda a: a.accum_steps > 1,
@@ -110,14 +118,19 @@ def parse_args(argv=None):
                         help="Static per-image annotation padding")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu.")
+    parser.add_argument("--profile-dir", default=None,
+                        help="Trace iterations 10-14 (torch.profiler)")
+    parser.add_argument("--device-augment", action="store_true",
+                        help="Run the SSD augmentation batched on the "
+                             "device (the host only resizes to a canvas; "
+                             "with --mixup, mixup is batch-level there)")
+    parser.add_argument("--canvas", type=int, default=384,
+                        help="Working-canvas size for --device-augment")
     # flags of train.py that the port does not run yet: each raises
     parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--pallas-ct", choices=["auto", "on", "off"],
                         default=None)
-    parser.add_argument("--profile-dir", default=None)
     parser.add_argument("--orbax", action="store_true")
-    parser.add_argument("--device-augment", action="store_true")
-    parser.add_argument("--canvas", type=int, default=None)
     parser.add_argument("--fused-opt", choices=["on", "off"], default="off")
     parser.add_argument("--accum-steps", type=int, default=1)
     return parser.parse_args(argv)
@@ -138,8 +151,61 @@ def train_sets(args):
     return [("2007", "trainval"), ("2012", "trainval")]
 
 
+# the random streams of the device route, as train.py's PRNG keys 1, 2, 3
+AUGMENT_STREAM, MIXUP_STREAM, REWEIGHT_STREAM = 1, 2, 3
+
+
+def seed_of(stream: int, iteration: int) -> int:
+    """The seed of one iteration's draws from one stream (train.py folds
+    the iteration into the stream's key), so that a resumed run draws what
+    an unbroken one would."""
+    return (stream << 32) + iteration
+
+
+def is_write_point(iteration: int, start_iter: int, max_iter: int) -> bool:
+    """Where train.py fetches the losses and writes its metrics: after 5
+    iterations, every 20 and at the last."""
+    return iteration - start_iter > 5 and (iteration % 20 == 0
+                                           or iteration == max_iter - 1)
+
+
+def device_augmented(gen, seed: int, batch, out_size: int) -> dict:
+    """A batch on the device, augmented there from ``gen`` seeded with
+    ``seed``, its weights carried over."""
+    from ct_tpu_torch.data.augment_device import augment_batch
+
+    gen.manual_seed(seed)
+    return dict(augment_batch(gen, batch["image"], batch["boxes"],
+                              batch["labels"], batch["valid"],
+                              out_size=out_size), weights=batch["weights"])
+
+
+class AugmentedBatches:
+    """``init_reweight``'s loader on the device-augment route: the
+    loader's canvases augmented on the device at the model's size from a
+    stream of their own, never mixed (the reference initialises before it
+    turns mixup on)."""
+
+    def __init__(self, loader, device, out_size: int):
+        import torch
+
+        self.loader = loader
+        self.device = device
+        self.out_size = out_size
+        self.gen = torch.Generator(device=device)
+        self.i = 0
+
+    def next(self):
+        from ct_tpu_torch.train.step import batch_to
+
+        self.i += 1
+        return device_augmented(self.gen, seed_of(REWEIGHT_STREAM, self.i),
+                                batch_to(self.loader.next(), self.device),
+                                self.out_size)
+
+
 def main(argv=None) -> dict:
-    """Train; returns the last iteration's losses."""
+    """Train; returns the last iteration's losses and lr."""
     args = parse_args(argv)
     check_ported(args)
 
@@ -149,7 +215,8 @@ def main(argv=None) -> dict:
     from ct_tpu_torch.config import (
         EXPAND_PROB, OVERLAP_THRESHOLD, RGB_MEANS, get_config, resolve_task,
     )
-    from ct_tpu_torch.data.augment import TrainAugment
+    from ct_tpu_torch.data.augment import RawCanvasTransform, TrainAugment
+    from ct_tpu_torch.data.augment_device import mixup_batch
     from ct_tpu_torch.data.loader import Loader
     from ct_tpu_torch.data.voc import AnnotationTransform, VOCDetection
     from ct_tpu_torch.models.rfbnet import build_net
@@ -157,11 +224,17 @@ def main(argv=None) -> dict:
     from ct_tpu_torch.train.checkpointer import (
         Checkpointer, PeriodicCheckpointer,
     )
+    from ct_tpu_torch.train.events import (
+        CommonMetricPrinter, EventStorage, JSONWriter, TensorboardWriter,
+    )
     from ct_tpu_torch.train.reweight import init_reweight
     from ct_tpu_torch.train.solver import (
         SolverConfig, build_optimizer, warmup_multistep_schedule,
     )
-    from ct_tpu_torch.train.step import TrainState, batch_to, make_train_step
+    from ct_tpu_torch.train.step import (
+        LOSS_KEYS, TrainState, batch_to, make_train_step,
+    )
+    from ct_tpu_torch.utils.profiler import StepTimer, annotate, trace
 
     os.makedirs(args.save_folder, exist_ok=True)
     logging.basicConfig(
@@ -184,9 +257,11 @@ def main(argv=None) -> dict:
                               warmup_iters=args.warmup_iter)
     schedule = warmup_multistep_schedule(solver_cfg)
 
+    preproc = (RawCanvasTransform(args.canvas) if args.device_augment
+               else TrainAugment(img_dim, RGB_MEANS, EXPAND_PROB))
     dataset = VOCDetection(
         os.environ.get("VOC_ROOT", "data/VOCdevkit"), train_sets(args),
-        TrainAugment(img_dim, RGB_MEANS, EXPAND_PROB),
+        preproc,
         AnnotationTransform(0 if args.setting == "transfer" else args.split),
         phase=args.phase, setting=args.setting, split=args.split,
         shot=args.shot, instance_shot=args.instance_shot)
@@ -211,37 +286,97 @@ def main(argv=None) -> dict:
 
     loader = Loader(dataset, args.batch_size, num_workers=args.num_workers,
                     max_objs=args.max_objs, seed=0)
-    metrics_path = os.path.join(args.save_folder, "metrics.json")
-    row = {}
+    writers = [CommonMetricPrinter(args.max_iter),
+               JSONWriter(os.path.join(args.save_folder, "metrics.json")),
+               TensorboardWriter(args.save_folder)]
+    storage = EventStorage(start_iter)
+    timer = StepTimer()
+    aug_gen = torch.Generator(device=device)
+    zero_ignored = args.setting == "incre" or args.instance_shot
+    device_mixup = False
+    profiler_ctx = None
+    # The losses stay on the device, one stacked vector per iteration, and
+    # are fetched together at the write points: the loop never waits for
+    # the card to finish a step.
+    metric_keys = LOSS_KEYS + ("total_loss",)
+    pending = []          # [(iteration, metric_keys' values on the device)]
+    result = {}
+
+    def flush_metrics():
+        if not pending:
+            return
+        host = torch.stack([m for _, m in pending]).cpu().tolist()
+        for (it, _), vals in zip(pending, host):
+            losses = dict(zip(metric_keys, vals))
+            storage.put_scalars(iteration=it, **losses)
+            storage.put_scalar("lr", schedule(it), smoothing_hint=False,
+                               iteration=it)
+            result.update(iteration=it, **losses, lr=schedule(it))
+        pending.clear()
+
     try:
         if task.has_ct_head:
-            init_reweight(model, loader, priors, task, args.init_iter)
-            if args.mixup:
+            rw_loader = (AugmentedBatches(loader, device, img_dim)
+                         if args.device_augment else loader)
+            init_reweight(model, rw_loader, priors, task, args.init_iter)
+            if args.mixup and args.device_augment:
+                device_mixup = True   # batch-level, after the augmentation
+            elif args.mixup:
                 dataset.set_mixup(np.random.beta, 1.5, 1.5)
                 loader.restart()
             logger.info("Fine tuning on %d-shot task", args.shot)
         logger.info("Starting training from iteration %d", start_iter)
-        with open(metrics_path, "a") as metrics:
-            for iteration in range(start_iter, args.max_iter):
-                if (task.has_ct_head and args.mixup and iteration
-                        == args.max_iter - args.no_mixup_iter):
+        for iteration in range(start_iter, args.max_iter):
+            storage.step()
+            if args.profile_dir is not None:
+                if iteration == start_iter + 10:
+                    profiler_ctx = trace(args.profile_dir)
+                    profiler_ctx.__enter__()
+                elif iteration == start_iter + 15 and profiler_ctx is not None:
+                    profiler_ctx.__exit__(None, None, None)
+                    profiler_ctx = None
+                    logger.info("Profiler trace written to %s",
+                                args.profile_dir)
+            if (task.has_ct_head and args.mixup and iteration
+                    == args.max_iter - args.no_mixup_iter):
+                if device_mixup:
+                    device_mixup = False
+                else:
                     dataset.set_mixup(None)
                     loader.restart()
-                batch = batch_to(loader.next(), device)
+            with annotate("data"):
                 t0 = time.perf_counter()
+                batch = loader.next()
+                storage.put_scalar("data_time", time.perf_counter() - t0)
+                batch = batch_to(batch, device)
+            if args.device_augment:
+                with annotate("augment"):
+                    batch = device_augmented(
+                        aug_gen, seed_of(AUGMENT_STREAM, iteration), batch,
+                        img_dim)
+                    if device_mixup:
+                        batch = mixup_batch(
+                            np.random.default_rng(
+                                seed_of(MIXUP_STREAM, iteration)),
+                            batch, zero_ignored=zero_ignored)
+            with annotate("step"):
                 losses = step_fn(state, batch)
-                row = {"iteration": iteration,
-                       **{k: float(v) for k, v in losses.items()
-                          if k != "num_pos"},
-                       "lr": schedule(iteration),
-                       "time": time.perf_counter() - t0}
-                logger.info("iter: %d/%d  %s", iteration, args.max_iter,
-                            "  ".join(f"{k}: {v:.4g}" for k, v in row.items()
-                                      if k != "iteration"))
-                metrics.write(json.dumps(row) + "\n")
-                metrics.flush()
-                periodic.step(iteration, model=model, optimizer=optimizer,
-                              scheduler=scheduler)
+            pending.append((iteration,
+                            torch.stack([losses[k] for k in metric_keys])))
+            dt = timer.tick()
+            if dt is not None:
+                storage.put_scalar("time", dt)
+            if is_write_point(iteration, start_iter, args.max_iter):
+                flush_metrics()
+                for w in writers:
+                    w.write(storage)
+            periodic.step(iteration, model=model, optimizer=optimizer,
+                          scheduler=scheduler)
+        flush_metrics()
     finally:
+        if profiler_ctx is not None:
+            profiler_ctx.__exit__(None, None, None)
         loader.stop()
-    return row
+        for w in writers[1:]:
+            w.close()
+    return result

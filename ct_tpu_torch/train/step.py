@@ -26,6 +26,7 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
+from ct_tpu_torch.data.loader import to_device
 from ct_tpu_torch.models.rfbnet import RFBNet
 from ct_tpu_torch.ops.losses import loss_mask, masked_loss_sums
 from ct_tpu_torch.ops.matching import match_batch
@@ -52,13 +53,13 @@ def normalize_obj_target(model: RFBNet) -> None:
 
 def batch_to(batch: Mapping, device) -> Dict[str, torch.Tensor]:
     """A loader batch (numpy, NHWC images) → tensors on ``device``, with
-    NCHW images."""
+    NCHW images; the copies to the card do not wait for it."""
     out = {}
     for key, val in batch.items():
-        t = torch.as_tensor(val)
+        t = to_device(val, device)
         if key == "image" and t.shape[-1] == 3:
             t = t.permute(0, 3, 1, 2)
-        out[key] = t.to(device).contiguous()
+        out[key] = t.contiguous()
     return out
 
 

@@ -1,1 +1,2 @@
-"""Small utilities of the port: device timing (``timing.py``)."""
+"""Small utilities of the port: device timing (``timing.py``) and
+profiling (``profiler.py``)."""

@@ -43,6 +43,11 @@ plain version on the same card, f32 with TF32 off:
   and dbias within 1e-5 of each channel's Σ |masked| (f32 sums over up to
   5.8 million values in another order).
 
+The device augmentation (``data/augment_device.py``), drawn on the card,
+applied on the card and on the CPU from the same parameters: images within
+2e-3 on the 0-255 scale, boxes within 1e-6, ``valid`` and labels equal;
+``mixup_batch`` on the card against ``apply_mixup`` on the CPU within 1e-6.
+
 The size-64 model on the card is held to the same model on the CPU, in
 eval mode, as the int8 serving model (on the same scales: the int8 sums
 are exact, the float heads agree to 1e-4) and for one training
@@ -599,3 +604,56 @@ def test_blockwise_stats_pass_at_tile_edges(cuda, b, c, p, k):
     for a, r in zip(first, second):
         assert torch.equal(a, r)
     assert_grads_close(first, plain)
+
+
+def _params_on_cpu(params):
+    import dataclasses
+
+    return dataclasses.replace(params, **{
+        f.name: getattr(params, f.name).cpu()
+        for f in dataclasses.fields(params)})
+
+
+@pytest.mark.parametrize("b,canvas,out_size", [(64, 384, 300), (5, 97, 64)])
+def test_device_augment_on_the_card_matches_the_cpu(cuda, b, canvas,
+                                                    out_size):
+    """``augment_batch``'s draws on the card, applied on the card and on
+    the CPU: images within 2e-3 on the 0-255 scale, boxes within 1e-6,
+    ``valid`` and labels equal (the CPU tests' bands against JAX); and
+    ``mixup_batch`` on the card against ``apply_mixup`` on the CPU with the
+    same λ and offset, within 1e-6 (relative to 255 for the images)."""
+    from ct_tpu_torch.data import augment_device as D
+
+    rng = np.random.default_rng(b)
+    images = torch.from_numpy(rng.integers(0, 256, (b, 3, canvas, canvas),
+                                           dtype=np.uint8))
+    mins = rng.uniform(0.0, 0.6, (b, 6, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [mins, np.minimum(mins + rng.uniform(0.05, 0.4, (b, 6, 2)), 1.0)],
+        -1).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(-1, 21, (b, 6)).astype(np.int32))
+    valid = torch.from_numpy(rng.random((b, 6)) < 0.7)
+    weights = valid.float()
+    gen = torch.Generator(cuda).manual_seed(b)
+    photo, geom = D.sample_augment(gen, boxes.to(cuda), valid.to(cuda))
+    out = D.apply_augment(images.to(cuda), boxes.to(cuda), labels.to(cuda),
+                          valid.to(cuda), photo, geom, out_size)
+    ref = D.apply_augment(images, boxes, labels, valid,
+                          _params_on_cpu(photo), _params_on_cpu(geom),
+                          out_size)
+    assert out["image"].shape == (b, 3, out_size, out_size)
+    assert (out["image"].cpu() - ref["image"]).abs().max().item() <= 2e-3
+    assert (out["boxes"].cpu() - ref["boxes"]).abs().max().item() <= 1e-6
+    assert torch.equal(out["valid"].cpu(), ref["valid"])
+    assert torch.equal(out["labels"].cpu(), ref["labels"])
+
+    batch = dict(ref, weights=weights)
+    mixed = D.mixup_batch(np.random.default_rng(3),
+                          {k: v.to(cuda) for k, v in batch.items()},
+                          zero_ignored=True)
+    lam, offset = D.sample_mixup(np.random.default_rng(3), b)
+    plain = D.apply_mixup(batch, torch.from_numpy(lam), offset, True)
+    for key, val in plain.items():
+        scale = 255.0 if key == "image" else 1.0
+        assert (mixed[key].cpu().float() - val.float()).abs().max().item() \
+            <= 1e-6 * scale, key

@@ -1,21 +1,33 @@
-"""The port's training data, checkpoints and CLI vs the JAX package's.
+"""The port's training data, checkpoints, metrics and CLI vs the JAX
+package's.
 
 * ``TrainAugment`` from the same Python ``random`` seed: identical images
-  and targets (both draw the same numbers in the same order).
+  and targets (both draw the same numbers in the same order);
+  ``RawCanvasTransform`` (the host half of the device augmentation):
+  identical canvases and targets.
 * ``VOCDetection`` (training side) on the mini VOC of tests/fixtures.py:
   the same ids, targets, ignore labels and, from the same numpy seed, the
   same mixed images and mixup weights (ignored rows weigh 0 in ``incre``).
 * ``Loader`` with thread workers: the same padded batches as the JAX
-  package's ``Loader`` for one seed, before and after a restart.
+  package's ``Loader`` for one seed, before and after a restart, with the
+  samples' own image dtype (float32, or uint8 canvases).
 * The checkpointer: round trip, the ``last_checkpoint`` tag, resume with
   the optimizer state, the phase-2 fresh start (weights only), a skip with
   a log line per key whose shape differs, the VGG basenet's prefix.
+* ``train/events.py`` and ``StepTimer`` against the JAX package's, fed the
+  same scalars (and clock); ``train.py``'s write points.
 * The CLI at 300 on the CPU, three steps of batch 2: phase 2 incre
-  ``ours`` (shot 1, mixup, two OBJ_Target init batches) and phase 2
-  transfer ``ours`` from ``.parity_p2/ref_model.pth``, and phase 1 from
-  scratch: finite losses, checkpoints, a ``metrics.json`` line per step,
-  and the port's eval CLI scores ``model_final.pth``. Flags of what is not
-  ported raise.
+  ``ours`` (shot 1, mixup, two OBJ_Target init batches), the same with the
+  device augmentation and batch-level mixup, phase 2 transfer ``ours``
+  from ``.parity_p2/ref_model.pth``, and phase 1 from scratch: finite
+  losses, checkpoints, no ``metrics.json`` row yet (``train.py`` writes
+  its first after 5 iterations), and the port's eval CLI scores
+  ``model_final.pth``. Twelve steps with the device route and
+  ``--profile-dir``: a ``metrics.json`` row with ``train.py``'s keys at the
+  last iteration, its log line, and a trace. Flags of what is not ported
+  raise and name their ROADMAP item.
+* ``tools/diff_detections``: the JAX tool's report on the same two
+  ``detections.pkl`` files; ``tools/trace_summary`` on a known trace.
 """
 
 import json
@@ -28,12 +40,13 @@ import pytest
 import torch
 
 from ct_tpu.config import RGB_MEANS as J_RGB_MEANS
+from ct_tpu.data.augment import RawCanvasTransform as JRawCanvasTransform
 from ct_tpu.data.augment import TrainAugment as JTrainAugment
 from ct_tpu.data.loader import Loader as JLoader
 from ct_tpu.data.voc import AnnotationTransform as JAnnotationTransform
 from ct_tpu.data.voc import VOCDetection as JVOCDetection
 from ct_tpu_torch.config import RGB_MEANS, resolve_task
-from ct_tpu_torch.data.augment import TrainAugment
+from ct_tpu_torch.data.augment import RawCanvasTransform, TrainAugment
 from ct_tpu_torch.data.loader import Loader
 from ct_tpu_torch.data.voc import AnnotationTransform, VOCDetection
 from ct_tpu_torch.models.rfbnet import build_net
@@ -71,6 +84,19 @@ def test_train_augment_matches_jax():
         np.testing.assert_array_equal(a_t, b_t)
 
 
+def test_raw_canvas_transform_matches_jax():
+    rng = np.random.RandomState(1)
+    img = rng.randint(0, 255, (240, 320, 3)).astype(np.uint8)
+    targets = np.asarray([[20.0, 30.0, 120.0, 140.0, 3.0],
+                          [150.0, 60.0, 300.0, 200.0, -1.0]])
+    for canvas in (384, 100):
+        a_img, a_t = RawCanvasTransform(canvas)(img.copy(), targets.copy())
+        b_img, b_t = JRawCanvasTransform(canvas)(img.copy(), targets.copy())
+        assert a_img.dtype == np.uint8 and a_img.shape == (canvas, canvas, 3)
+        np.testing.assert_array_equal(a_img, b_img)
+        np.testing.assert_array_equal(a_t, b_t)
+
+
 @pytest.mark.parametrize("phase,setting,instance_shot", [
     (2, "incre", False), (2, "transfer", False), (2, "transfer", True),
     (1, "transfer", False)])
@@ -103,7 +129,11 @@ def test_voc_train_set_matches_jax(devkit, phase, setting, instance_shot):
 
 
 class _Fixed:
-    """Seven fixed-size samples with ragged targets."""
+    """Seven fixed-size samples with ragged targets; float32 images, or
+    uint8 ones as the device route's canvases."""
+
+    def __init__(self, dtype=np.float32):
+        self.dtype = dtype
 
     def __len__(self):
         return 7
@@ -114,12 +144,14 @@ class _Fixed:
         t = np.hstack([rng.uniform(0, 0.5, (n, 2)),
                        rng.uniform(0.5, 1, (n, 2)),
                        rng.randint(1, 20, (n, 1)), np.ones((n, 1))])
-        return rng.standard_normal((8, 8, 3)).astype(np.float32), t
+        img = rng.uniform(0, 255, (8, 8, 3)).astype(self.dtype)
+        return img, t
 
 
-def test_loader_batches_match_jax():
-    ours = Loader(_Fixed(), 3, num_workers=2, max_objs=5, seed=4)
-    ref = JLoader(_Fixed(), 3, num_workers=3, max_objs=5, seed=4)
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_loader_batches_match_jax(dtype):
+    ours = Loader(_Fixed(dtype), 3, num_workers=2, max_objs=5, seed=4)
+    ref = JLoader(_Fixed(dtype), 3, num_workers=3, max_objs=5, seed=4)
     try:
         for restart in (False, True):
             if restart:
@@ -128,6 +160,7 @@ def test_loader_batches_match_jax():
             for _ in range(4):
                 a, b = ours.next(), ref.next()
                 assert set(a) == set(b)
+                assert a["image"].dtype == dtype
                 for key in a:
                     np.testing.assert_array_equal(a[key], b[key],
                                                   err_msg=key)
@@ -231,23 +264,98 @@ def test_checkpointer_skips_mismatched_shapes_and_prefixes_basenet(
     assert torch.equal(dst.base[0].weight, src.base[0].weight)
 
 
+# each flag the port refuses, with the ROADMAP item its message names
+REFUSED = {"--bf16": "Queue 1 item 4", "--orbax": "Queue 1 item 8",
+           "--pallas-ct": "the port always runs its CT kernels",
+           "--fused-opt": "Queue 1 item 4", "--accum-steps": "Queue 1 item 4",
+           "--ndev": "Queue 1 item 8", "--worker-type": "Queue 1 item 5",
+           "-d": "Queue 1 item 5"}
+
+
 @pytest.mark.parametrize("flag", [
-    ["--bf16"], ["--device-augment"], ["--canvas", "384"], ["--orbax"],
-    ["--pallas-ct", "on"], ["--profile-dir", "p"], ["--fused-opt", "on"],
+    ["--bf16"], ["--orbax"], ["--pallas-ct", "on"], ["--fused-opt", "on"],
     ["--accum-steps", "2"], ["--ndev", "2"], ["--worker-type", "process"],
     ["-d", "COCO"]])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match=f"ROADMAP: .*{REFUSED[flag[0]]}"):
         cli.main(flag + ["--save-folder", str(tmp_path), "--device", "cpu"])
 
 
+def test_events_match_jax(caplog, tmp_path):
+    from ct_tpu.train import events as J
+    from ct_tpu_torch.train import events as T
+
+    rng = np.random.RandomState(0)
+    stores = (J.EventStorage(3), T.EventStorage(3))
+    for it in range(3, 40):
+        vals = {"loss_cls": rng.rand(), "total_loss": 3 * rng.rand()}
+        for st in stores:
+            st.step()
+            st.put_scalars(iteration=it, **vals)
+            st.put_scalar("lr", 1e-3 * it, smoothing_hint=False,
+                          iteration=it)
+            if it % 3:
+                st.put_scalar("time", 0.1 * (it % 7))
+    ref, ours = stores
+    assert ours.iter == ref.iter == 40
+    assert ours.smoothed() == ref.smoothed()
+    for name, h in ref.histories().items():
+        g = ours.histories()[name]
+        assert g.values() == h.values()
+        assert (g.median(), g.avg(), g.latest()) == (h.median(), h.avg(),
+                                                     h.latest())
+        assert g.median(5) == h.median(5)
+    rows = []
+    for mod, st, name in ((J, ref, "j.json"), (T, ours, "t.json")):
+        w = mod.JSONWriter(str(tmp_path / name))
+        w.write(st)
+        w.close()
+        rows.append((tmp_path / name).read_text())
+    assert rows[0] == rows[1] and json.loads(rows[1])["iteration"] == 40
+    with caplog.at_level(logging.INFO):
+        J.CommonMetricPrinter(100).write(ref)
+        T.CommonMetricPrinter(100).write(ours)
+    lines = [r.getMessage() for r in caplog.records
+             if r.name.endswith("events")]
+    assert len(lines) == 2 and lines[0] == lines[1]
+    assert "loss_cls" in lines[1] and "max_mem" not in lines[1]
+
+
+def test_step_timer_matches_jax(monkeypatch):
+    import time
+
+    from ct_tpu.utils.profiler import StepTimer as JStepTimer
+    from ct_tpu_torch.utils.profiler import StepTimer
+
+    clock = [0.0, 0.5, 0.7, 1.6, 1.8, 2.9, 3.0]
+    ticks = []
+    for timer in (JStepTimer(), StepTimer()):
+        it = iter(clock)
+        with monkeypatch.context() as m:
+            m.setattr(time, "perf_counter", lambda: next(it))
+            ticks.append(([timer.tick() for _ in clock], timer.mean,
+                          timer.count))
+    assert ticks[0] == ticks[1] and ticks[1][2] == 4
+
+
+def test_write_points_are_train_py_s():
+    assert [i for i in range(26) if cli.is_write_point(i, 0, 26)] == [20, 25]
+    assert [i for i in range(3) if cli.is_write_point(i, 0, 3)] == []
+    assert [i for i in range(5, 50) if cli.is_write_point(i, 5, 50)] == [
+        20, 40, 49]
+
+
 # (train flags, eval flags, APs scored): phase 2 incre from the trained
-# phase-2 model; phase 2 transfer from it too (its 15-class conf heads are
-# skipped for the 60-class model); phase 1 from scratch (no basenet here)
+# phase-2 model, with the host or the device augmentation; phase 2
+# transfer from it too (its 15-class conf heads are skipped for the
+# 60-class model); phase 1 from scratch (no basenet here)
+INCRE = ["-p", "2", "--setting", "incre", "--split", "1", "--shot", "1",
+         "--mixup", "--init-iter", "2", "--load-file", REF_MODEL]
 CLI_CASES = {
-    "incre": (["-p", "2", "--setting", "incre", "--split", "1", "--shot",
-               "1", "--mixup", "--init-iter", "2", "--load-file", REF_MODEL],
-              ["-p", "2", "--setting", "incre", "--split", "1"], 20),
+    "incre": (INCRE, ["-p", "2", "--setting", "incre", "--split", "1"], 20),
+    "incre_device_augment": (INCRE + ["--device-augment", "--canvas", "320"],
+                             ["-p", "2", "--setting", "incre", "--split",
+                              "1"], 20),
     "transfer": (["-p", "2", "--setting", "transfer", "--shot", "5",
                   "--init-iter", "1", "--load-file", REF_MODEL],
                  ["-p", "2", "--setting", "transfer"], 20),
@@ -275,29 +383,102 @@ def test_cli_trains_three_steps_and_the_eval_cli_scores_them(
 
     train_flags, eval_flags, n_aps = CLI_CASES[case]
     assert cli.parse_args([]).device == "cuda"
-    monkeypatch.setenv("VOC_ROOT", devkit if case == "incre"
+    monkeypatch.setenv("VOC_ROOT", devkit if case.startswith("incre")
                        else devkit_0712)
     save = str(tmp_path / "w")
     row = cli.main(["-d", "VOC", "--max-iter", "3", "-b", "2",
                     "--num-workers", "2", "--checkpoint-period", "2",
                     "--save-folder", save, "--device", "cpu"] + train_flags)
     assert row["iteration"] == 2
+    assert set(row) == {"iteration", "loss_box_reg", "loss_cls", "loss_obj",
+                        "total_loss", "lr"}
+    assert all(np.isfinite(v) for v in row.values())
     assert set(os.listdir(save)) >= {"last_checkpoint", "model_0000001.pth",
                                      "model_final.pth", "metrics.json",
                                      "log.txt"}
+    # train.py's first write point comes after 5 iterations
     with open(os.path.join(save, "metrics.json")) as f:
-        rows = [json.loads(line) for line in f]
-    assert [r["iteration"] for r in rows] == [0, 1, 2]
-    for r in rows:
-        assert set(r) == {"iteration", "loss_box_reg", "loss_cls",
-                          "loss_obj", "total_loss", "lr", "time"}
-        assert all(np.isfinite(v) for v in r.values())
-    with open(os.path.join(save, "log.txt")) as f:
-        assert f.read().count("total_loss") == 3
+        assert f.read() == ""
 
     res = test_cli.main(eval_flags + [
         "--load-file", os.path.join(save, "model_final.pth"),
         "--save-folder", save, "-b", "4", "--device", "cpu"])
     assert len(res["APs"]) == n_aps and np.isfinite(res["mAP"])
-    if case == "incre":
+    if case.startswith("incre"):
         assert set(res) == {"mAP", "APs", "base_mAP", "novel_mAP"}
+
+
+def test_cli_writes_train_py_metrics_and_a_trace(devkit, tmp_path,
+                                                 monkeypatch, two_threads):
+    """Twelve steps on the device route: one write point (the last
+    iteration, which train.py labels 12, the iterations done), a trace of
+    iterations 10 and 11 (the window closes with the run)."""
+    from ct_tpu_torch.tools import trace_summary
+
+    monkeypatch.setenv("VOC_ROOT", devkit)
+    save, prof = str(tmp_path / "w"), str(tmp_path / "prof")
+    row = cli.main(INCRE + [
+        "-d", "VOC", "--max-iter", "12", "-b", "2", "--num-workers", "2",
+        "--checkpoint-period", "100", "--device-augment",
+        "--no-mixup-iter", "4", "--profile-dir", prof,
+        "--save-folder", save, "--device", "cpu"])
+    assert row["iteration"] == 11
+    with open(os.path.join(save, "metrics.json")) as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["iteration"] for r in rows] == [12]
+    assert set(rows[0]) == {"iteration", "data_time", "time", "loss_box_reg",
+                            "loss_cls", "loss_obj", "total_loss", "lr"}
+    assert all(np.isfinite(v) for v in rows[0].values())
+    assert rows[0]["lr"] == row["lr"]
+    with open(os.path.join(save, "log.txt")) as f:
+        printed = [line for line in f if "ct_tpu_torch.train.events" in line]
+    assert len(printed) == 1 and "iter: 12" in printed[0]
+    assert "total_loss" in printed[0] and "time: " in printed[0]
+    summary = trace_summary.summarize(prof)
+    assert summary["window_ms"] > 0 and summary["device_busy_share"] == 0
+
+
+def test_trace_summary_counts_overlapping_kernels_once(tmp_path):
+    from ct_tpu_torch.tools import trace_summary
+
+    events = [{"ph": "X", "cat": "cpu_op", "name": "step", "ts": 0,
+               "dur": 100},
+              {"ph": "X", "cat": "kernel", "name": "a", "ts": 10, "dur": 30},
+              {"ph": "X", "cat": "kernel", "name": "b", "ts": 20, "dur": 30},
+              {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 70,
+               "dur": 10},
+              {"ph": "i", "cat": "kernel", "name": "mark", "ts": 90}]
+    with open(tmp_path / "trace.json", "w") as f:
+        json.dump({"traceEvents": events}, f)
+    res = trace_summary.summarize(str(tmp_path))
+    assert res["window_ms"] == 0.1 and res["device_busy_ms"] == 0.05
+    assert res["device_busy_share"] == 0.5
+    assert res["by_category"]["kernel"] == {"ms": 0.06, "count": 2}
+
+
+def test_profiler_trace_and_annotate(tmp_path):
+    from ct_tpu_torch.utils.profiler import annotate, trace
+
+    with trace(str(tmp_path)):
+        with annotate("labelled_span"):
+            torch.ones(4).sum()
+    with open(tmp_path / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "labelled_span" in names
+
+
+def test_diff_detections_matches_jax(capsys):
+    from ct_tpu.tools.diff_detections import diff as jdiff
+    from ct_tpu_torch.tools import diff_detections
+
+    a = os.path.join(REPO, ".parity_p2", "ours_eval", "inference",
+                     "detections.pkl")
+    b = os.path.join(REPO, ".parity_p2", "ours_eval_int8", "inference",
+                     "detections.pkl")
+    for kw in ({}, {"iou_thr": 0.9, "score_floor": 0.3}):
+        ref = jdiff(a, b, **kw)
+        ours = diff_detections.diff(a, b, **kw)
+        assert ours == ref and 0 < ref["matched"] < ref["detections_a"]
+    assert diff_detections.main([a, a]) == dict(
+        jdiff(a, a), match_rate=1.0)
+    assert "match_rate: 1.0" in capsys.readouterr().out
