@@ -46,7 +46,17 @@
 // Ragged P (rows past P compute on zeros and store nothing), ragged K
 // (the last tile is zero-filled and its dead keys masked) and padded
 // classes (zero, never stored) are handled in the walk.
+//
+// bfloat16 (ct_attention_cm_bf16, ct_attention_bf16 and
+// ct_attention_variant_bf16): the same function on bf16 q, k, v and base,
+// f32 wz, bf16 out, with the JAX kernels' rounding points, on the bf16 walk
+// (ct_attention_bf16.cuh: one m16n8k16 product per tile, the weights
+// rounded to bf16 against the final max, the denominator from v's ones
+// column). Its bound is its B*P*K exponentials on the special-function
+// units, not its products (PERF.md §6). The epilogue divides by the
+// denominator, out = bf16(base + wz * num / den), rounded to nearest even.
 
+#include "ct_attention_bf16.cuh"
 #include "ct_attention_mma.cuh"
 
 namespace {
@@ -214,4 +224,150 @@ extern "C" int ct_attention_variant_f32(const void* q, const void* k,
                                         int C, int P, int K, void* stream) {
   return launch<false, true, true>(q, k, v, base, wz, out, nullptr, nullptr,
                                    nullptr, B, C, P, K, stream);
+}
+
+// --- bfloat16 -------------------------------------------------------------
+
+namespace {
+
+using ct::bf::bf16;
+
+template <int CP, bool kRowMajor, bool kExpBf16>
+__global__ void __launch_bounds__(kThreads, ct::bf::kMinBlocks<CP>)
+ct_attention_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ kp,
+                         const bf16* __restrict__ vp,
+                         const bf16* __restrict__ base,
+                         const float* __restrict__ wz,
+                         bf16* __restrict__ out, int C, int P, int K) {
+  constexpr int kBytes = ct::bf::kWalkBytes<CP>;
+  static_assert(CP * kStageStride * 4 <= kBytes &&
+                    kRows * (CP + 1) * 4 <= kBytes,
+                "the epilogue's stage fits in the walk's shared memory");
+  __shared__ __align__(16) unsigned char smem_raw[kBytes];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  float* stagef = reinterpret_cast<float*>(smem_raw);
+  constexpr int NN = CP / 8;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kRows;
+
+  uint32_t qa[CP / 16][4];
+  ct::bf::load_rows<CP, kRowMajor>(q, b, p0 + warp * 16, C, P, gq, tq, qa);
+  float o[NN][4], m[2];
+  ct::bf::attend<CP, kExpBf16>(qa, kp, vp, b, K, smem, o, m);
+
+  // the numerators and (column C) the denominator into the stage
+  __syncthreads();  // the key tiles are no longer read
+#pragma unroll
+  for (int nn = 0; nn < NN; ++nn) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = warp * 16 + gq + (r / 2) * 8;
+      const int c = 8 * nn + 2 * tq + r % 2;
+      if (kRowMajor) {
+        stagef[row * (CP + 1) + c] = o[nn][r];
+      } else {
+        stagef[c * kStageStride + row] = o[nn][r];
+      }
+    }
+  }
+  __syncthreads();
+  const int rows = min(kRows, P - p0);
+  if (kRowMajor) {
+    const size_t first = (static_cast<size_t>(b) * P + p0) * C;
+    for (int e = threadIdx.x; e < rows * C; e += kThreads) {
+      const int c = e % C;
+      const float* st = stagef + (e / C) * (CP + 1);
+      const float d = __fdiv_rn(st[c], st[C]);
+      out[first + e] = __float2bfloat16_rn(
+          __fadd_rn(__bfloat162float(base[first + e]), __fmul_rn(d, wz[c])));
+    }
+  } else {
+    for (int e = threadIdx.x; e < C * kRows; e += kThreads) {
+      const int c = e / kRows;
+      const int i = e % kRows;
+      if (i < rows) {
+        const size_t at = (static_cast<size_t>(b) * C + c) * P + p0 + i;
+        const float d = __fdiv_rn(stagef[c * kStageStride + i],
+                                  stagef[C * kStageStride + i]);
+        out[at] = __float2bfloat16_rn(
+            __fadd_rn(__bfloat162float(base[at]), __fmul_rn(d, wz[c])));
+      }
+    }
+  }
+}
+
+// pad k and v into scratch [2][B][K][CP], then the walk
+template <bool kRowMajor, bool kExpBf16>
+int launch_bf16(const void* q, const void* k, const void* v,
+                const void* base, const void* wz, void* out, void* scratch,
+                int B, int C, int P, int K, void* stream) {
+  if (B <= 0 || C <= 0 || C >= 64 || P <= 0 || K <= 0 || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int CP = ct::bf::padded_classes(C);
+  bf16* kp = static_cast<bf16*>(scratch);
+  bf16* vp = kp + static_cast<size_t>(B) * K * CP;
+  const long long rows = static_cast<long long>(B) * K;
+  const long long pad_blocks = (rows * CP + 255) / 256;
+  ct::bf::pad_kv<<<static_cast<int>(pad_blocks < 4096 ? pad_blocks : 4096),
+                     256, 0, st>>>(static_cast<const bf16*>(k),
+                                             static_cast<const bf16*>(v), kp,
+                                             vp, rows, C, CP);
+  const cudaError_t pad = cudaGetLastError();
+  if (pad != cudaSuccess) return static_cast<int>(pad);
+  const dim3 grid((P + kRows - 1) / kRows, B);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* bb = static_cast<const bf16*>(base);
+  const float* wf = static_cast<const float*>(wz);
+  bf16* ob = static_cast<bf16*>(out);
+  if (CP == 16) {
+    ct_attention_bf16_kernel<16, kRowMajor, kExpBf16>
+        <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, C, P, K);
+  } else {
+    ct_attention_bf16_kernel<64, kRowMajor, kExpBf16>
+        <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, C, P, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bfloat16 entry points: q, k, v, base and out bf16, wz float32, C < 64;
+// `scratch` holds 2*B*K*CP bf16 (CP = 16 for C < 16, else 64), the padded
+// k and v. Each launches two kernels (the padding, then the walk) on
+// `stream` and returns the launch status.
+
+// Class-major eval forward: q, base, out [B,C,P].
+extern "C" int ct_attention_cm_bf16(const void* q, const void* k,
+                                    const void* v, const void* base,
+                                    const void* wz, void* out, void* scratch,
+                                    int B, int C, int P, int K,
+                                    void* stream) {
+  return launch_bf16<false, false>(q, k, v, base, wz, out, scratch, B, C, P,
+                                   K, stream);
+}
+
+// Row-major forward: q, base, out [B,P,C] (the attention bench).
+extern "C" int ct_attention_bf16(const void* q, const void* k, const void* v,
+                                 const void* base, const void* wz, void* out,
+                                 void* scratch, int B, int C, int P, int K,
+                                 void* stream) {
+  return launch_bf16<true, false>(q, k, v, base, wz, out, scratch, B, C, P, K,
+                                  stream);
+}
+
+// Row-major forward with the exponential's argument rounded to bf16 too:
+// the attention bench's bfloat16-exponent variant on bf16 inputs.
+extern "C" int ct_attention_variant_bf16(const void* q, const void* k,
+                                         const void* v, const void* base,
+                                         const void* wz, void* out,
+                                         void* scratch, int B, int C, int P,
+                                         int K, void* stream) {
+  return launch_bf16<true, true>(q, k, v, base, wz, out, scratch, B, C, P, K,
+                                 stream);
 }

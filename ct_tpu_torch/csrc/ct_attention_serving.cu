@@ -47,7 +47,21 @@
 // padded classes (zero in Wt + I, bt, wz and obj, so q and novel are zero
 // there) are handled as the forwards handle them. No atomics: two launches
 // give the same bits.
+//
+// bfloat16 (ct_attention_serving_bf16): conf, k, v, Wt and obj bf16, bt
+// and wz f32, out bf16, with the JAX kernel's rounding points:
+//   q     = bf16(Wt^T conf + bt + conf)    f32 sums, rounded once
+//   e     = bf16(exp(s - max s))           (the bf16 walk)
+//   novel = bf16(n / ||n||_2),  n = conf + wz * num / den    (f32, rsqrt)
+//   out   = bf16(scale * obj . novel)      f32 sums of exact bf16 products
+// on the bf16 walk (ct_attention_bf16.cuh). Wt is staged transposed
+// [out][in] bf16 and q = conf Wt is one m16n8k16 product a tile: its
+// accumulator is the walk's A layout as it stands (chunks 2kk and 2kk+1 of
+// the output classes are the A fragment of classes 16kk .. 16kk+15), and
+// the residual conf is read from the conf fragments, which hold the same
+// (row, class) pairs. Its bound, as the forward's, is its exponentials.
 
+#include "ct_attention_bf16.cuh"
 #include "ct_attention_mma.cuh"
 
 namespace {
@@ -245,6 +259,209 @@ extern "C" int ct_attention_serving_f32(const void* conf, const void* k,
   } else {
     ct_attention_serving_kernel<64><<<grid, kThreads, 0, st>>>(
         cf, kf, vf, wf, bf, zf, of, outf, C, P, K, N, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --- bfloat16 -------------------------------------------------------------
+
+namespace {
+
+using ct::bf::bf16;
+
+// shared memory of a bf16 block, in bytes: the walk's tiles (the staged Wt
+// [CP][CP + 8] bf16 before them), then the epilogue's stage [CP][68] and
+// obj [kMaxN][CP] f32; 8.3 KB at CP=16, 33 KB at CP=64
+template <int CP>
+constexpr int kServingBf16Bytes =
+    ct::bf::kWalkBytes<CP> > 4 * (CP * kStageStride + kMaxN * CP)
+        ? ct::bf::kWalkBytes<CP>
+        : 4 * (CP * kStageStride + kMaxN * CP);
+
+template <int CP>
+__global__ void __launch_bounds__(kThreads, ct::bf::kMinBlocks<CP>)
+ct_attention_serving_bf16_kernel(const bf16* __restrict__ conf,
+                                 const bf16* __restrict__ kp,
+                                 const bf16* __restrict__ vp,
+                                 const bf16* __restrict__ wt,
+                                 const float* __restrict__ bt,
+                                 const float* __restrict__ wz,
+                                 const bf16* __restrict__ obj,
+                                 bf16* __restrict__ out, int C, int P, int K,
+                                 int N, float scale) {
+  constexpr int S = ct::bf::kStride<CP>;
+  static_assert(CP * S * 2 <= ct::bf::kWalkBytes<CP>,
+                "Wt fits in the walk's shared memory");
+  __shared__ __align__(16) unsigned char smem_raw[kServingBf16Bytes<CP>];
+  __shared__ float wzs[CP];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  float* stagef = reinterpret_cast<float*>(smem_raw);
+  constexpr int NK = CP / 16;
+  constexpr int NN = CP / 8;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kRows;
+
+  // Wt transposed: smem[o * S + i] = Wt[i][o], zero past C
+  for (int e = threadIdx.x; e < CP * CP; e += kThreads) {
+    const int o = e / CP;
+    const int i = e % CP;
+    smem[o * S + i] = (i < C && o < C) ? wt[i * C + o]
+                                       : __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+
+  // q = conf Wt + bt + conf, rounded to bf16, as the walk's A operand
+  uint32_t qa[NK][4];
+  {
+    uint32_t x[NK][4];
+    ct::bf::load_rows<CP, false>(conf, b, p0 + warp * 16, C, P, gq, tq, x);
+    float d[NN][4];
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[nn][r] = 0.f;
+    }
+    // ldmatrix rows: output classes 8nn + (lane & 7) (+8 for lanes 16-31),
+    // input classes 16kk (+8 for lanes 8-15 and 24-31)
+    const int lrow = (lane & 7) + ((lane >> 4) << 3);
+    const int lcol = ((lane >> 3) & 1) << 3;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < NN; nn += 2) {
+        uint32_t r4[4];
+        ct::bf::ldmatrix_x4<false>(r4, smem + (8 * nn + lrow) * S + 16 * kk +
+                                           lcol);
+        const uint32_t b0[2] = {r4[0], r4[1]};
+        const uint32_t b1[2] = {r4[2], r4[3]};
+        ct::bf::mma(d[nn], x[kk], b0);
+        ct::bf::mma(d[nn + 1], x[kk], b1);
+      }
+    }
+    // element r of d[nn]: row g + 8(r/2), class 8nn + 2t + r%2; the conf
+    // value of that (row, class) is half r%2 of x[nn/2][2(nn%2) + r/2]
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn) {
+      float qv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int c = 8 * nn + 2 * tq + r % 2;
+        const uint32_t xw = x[nn / 2][2 * (nn % 2) + r / 2];
+        const float cf = r % 2 ? ct::bf::unpack_hi(xw) : ct::bf::unpack_lo(xw);
+        qv[r] = __fadd_rn(__fadd_rn(d[nn][r], c < C ? bt[c] : 0.f), cf);
+      }
+      qa[nn / 2][2 * (nn % 2) + 0] = ct::bf::pack(qv[0], qv[1]);
+      qa[nn / 2][2 * (nn % 2) + 1] = ct::bf::pack(qv[2], qv[3]);
+    }
+  }
+
+  float o[NN][4], m[2];
+  ct::bf::attend<CP, false>(qa, kp, vp, b, K, smem, o, m);
+
+  // numerators and denominator into the stage; obj and wz beside it
+  __syncthreads();  // the key tiles are no longer read
+#pragma unroll
+  for (int nn = 0; nn < NN; ++nn) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = warp * 16 + gq + (r / 2) * 8;
+      const int c = 8 * nn + 2 * tq + r % 2;
+      stagef[c * kStageStride + row] = o[nn][r];
+    }
+  }
+  float* objs = stagef + CP * kStageStride;
+  for (int e = threadIdx.x; e < N * CP; e += kThreads) {
+    const int n = e / CP;
+    const int c = e % CP;
+    objs[e] = c < C ? __bfloat162float(obj[n * C + c]) : 0.f;
+  }
+  for (int c = threadIdx.x; c < CP; c += kThreads) {
+    wzs[c] = c < C ? wz[c] : 0.f;
+  }
+  __syncthreads();
+
+  // anchor i of the block, by threads i and i + 64
+  const int i = threadIdx.x % kRows;
+  const int p = p0 + i;
+  if (p >= P) return;
+  const bf16* confp = conf + static_cast<size_t>(b) * C * P + p;
+  const float den = stagef[C * kStageStride + i];
+  float nv[CP];
+  float ss = 0.f;
+#pragma unroll
+  for (int c = 0; c < CP; ++c) {
+    const float x =
+        c < C ? __bfloat162float(confp[static_cast<size_t>(c) * P]) : 0.f;
+    const float d = __fdiv_rn(stagef[c * kStageStride + i], den);
+    nv[c] = __fadd_rn(x, __fmul_rn(d, wzs[c]));  // 0 past C (wz 0 there)
+    ss = __fmaf_rn(nv[c], nv[c], ss);
+  }
+  const float rn = rsqrtf(ss);
+#pragma unroll
+  for (int c = 0; c < CP; ++c) nv[c] = ct::bf16_round(__fmul_rn(nv[c], rn));
+
+  bf16* outp = out + static_cast<size_t>(b) * N * P + p;
+  for (int n = threadIdx.x / kRows; n < N; n += kThreads / kRows) {
+    const float4* orow = reinterpret_cast<const float4*>(objs + n * CP);
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+    for (int c4 = 0; c4 < CP / 4; ++c4) {
+      const float4 w = orow[c4];
+      s0 = fmaf(w.x, nv[4 * c4 + 0], s0);
+      s1 = fmaf(w.y, nv[4 * c4 + 1], s1);
+      s2 = fmaf(w.z, nv[4 * c4 + 2], s2);
+      s3 = fmaf(w.w, nv[4 * c4 + 3], s3);
+    }
+    outp[static_cast<size_t>(n) * P] =
+        __float2bfloat16_rn(((s0 + s1) + (s2 + s3)) * scale);
+  }
+}
+
+}  // namespace
+
+// bfloat16 entry point: conf, k, v, wt, obj and out bf16, bt and wz float32,
+// C < 64; `scratch` holds 2*B*K*CP bf16 (CP = 16 for C < 16, else 64), the
+// padded k and v. Launches the padding, then the head, on `stream`; returns
+// the launch status.
+extern "C" int ct_attention_serving_bf16(const void* conf, const void* k,
+                                         const void* v, const void* wt,
+                                         const void* bt, const void* wz,
+                                         const void* obj, void* out,
+                                         void* scratch, int B, int C, int P,
+                                         int K, int N, float scale,
+                                         void* stream) {
+  if (B <= 0 || C <= 0 || C >= 64 || P <= 0 || K <= 0 || N <= 0 ||
+      N > kMaxN || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int CP = ct::bf::padded_classes(C);
+  bf16* kp = static_cast<bf16*>(scratch);
+  bf16* vp = kp + static_cast<size_t>(B) * K * CP;
+  const long long rows = static_cast<long long>(B) * K;
+  const long long pad_blocks = (rows * CP + 255) / 256;
+  ct::bf::pad_kv<<<static_cast<int>(pad_blocks < 4096 ? pad_blocks : 4096),
+                   256, 0, st>>>(static_cast<const bf16*>(k),
+                                 static_cast<const bf16*>(v), kp, vp, rows, C,
+                                 CP);
+  const cudaError_t pad = cudaGetLastError();
+  if (pad != cudaSuccess) return static_cast<int>(pad);
+  const dim3 grid((P + kRows - 1) / kRows, B);
+  const bf16* cf = static_cast<const bf16*>(conf);
+  const bf16* wf = static_cast<const bf16*>(wt);
+  const float* bf = static_cast<const float*>(bt);
+  const float* zf = static_cast<const float*>(wz);
+  const bf16* of = static_cast<const bf16*>(obj);
+  bf16* outf = static_cast<bf16*>(out);
+  if (CP == 16) {
+    ct_attention_serving_bf16_kernel<16><<<grid, kThreads, 0, st>>>(
+        cf, kp, vp, wf, bf, zf, of, outf, C, P, K, N, scale);
+  } else {
+    ct_attention_serving_bf16_kernel<64><<<grid, kThreads, 0, st>>>(
+        cf, kp, vp, wf, bf, zf, of, outf, C, P, K, N, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,8 +31,11 @@ def make_eval_step(
     reference eval's thresholds (score 0.01, IoU 0.45, 200 detections per
     image) and ``top_k`` candidates per class; ``approx_top_k`` and
     ``pool_size`` are the serving options of ``batched_nms``. A quantized
-    serving model carries its own scales, so the step needs nothing more
-    for it."""
+    serving model carries its own scales, and a bf16 model (``RFBNet``'s
+    ``dtype``) its compute type: the images go in float32, as the JAX
+    package feeds them, its first conv casts them, and the scores reach
+    NMS in the type the model emits them (bf16 on the serving path); the
+    detections come out float32 either way."""
 
     @torch.inference_mode()
     def step(images: torch.Tensor,
@@ -99,7 +102,8 @@ def compare_detections(a: Detections, b: Detections, image: int = 0,
     """How far two runs' detections of one image agree (CPU tensors or
     numpy arrays). Each box of ``a``, best score first, is matched to the
     unused box of ``b`` of its class within ``score_tol`` with the highest
-    IoU. ``ok``: the same count, and every match has IoU ≥ ``iou_tol``."""
+    IoU. ``ok``: the same count, and every match has IoU ≥ ``iou_tol``;
+    ``matched``: the boxes of ``a`` so matched at IoU ≥ ``iou_tol``."""
     def rows(d):
         v = np.asarray(d.valid[image]).astype(bool)
         return (np.asarray(d.boxes[image])[v], np.asarray(d.scores[image])[v],
@@ -109,7 +113,7 @@ def compare_detections(a: Detections, b: Detections, image: int = 0,
     bb, bs, bc = rows(b)
     area = lambda x: (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])
     used = np.zeros(len(bb), bool)
-    min_iou, max_ds = 1.0, 0.0
+    min_iou, max_ds, matched = 1.0, 0.0, 0
     for i in np.argsort(-as_, kind="stable"):
         cand = np.where((bc == ac[i]) & ~used
                         & (np.abs(bs - as_[i]) <= score_tol))[0]
@@ -125,9 +129,11 @@ def compare_detections(a: Detections, b: Detections, image: int = 0,
         iou = inter / (area(ab[i]) + area(c) - inter)
         j = int(np.argmax(iou))
         min_iou = min(min_iou, float(iou[j]))
+        matched += int(iou[j] >= iou_tol)
         max_ds = max(max_ds, float(abs(bs[cand[j]] - as_[i])))
         used[cand[j]] = True
     return {"count_a": int(len(as_)), "count_b": int(len(bs)),
             "min_iou": min_iou, "max_abs_dscore": max_ds,
+            "matched": matched,
             "iou_tol": iou_tol, "score_tol": score_tol,
             "ok": len(as_) == len(bs) and min_iou >= iou_tol}

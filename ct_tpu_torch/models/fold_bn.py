@@ -54,7 +54,8 @@ def fold_state_dict(
 
 def fold_bn(net: RFBNet) -> RFBNet:
     """A folded copy of ``net`` (BN in eval mode), on its device, in eval
-    mode; ``net`` itself is left as it was."""
-    folded = RFBNet(net.task, net.size, fold_bn=True)
+    mode and its compute dtype (the folded weights stay float32); ``net``
+    itself is left as it was."""
+    folded = RFBNet(net.task, net.size, fold_bn=True, dtype=net.dtype)
     folded.load_state_dict(fold_state_dict(net.state_dict()))
     return folded.to(next(net.parameters()).device).eval()

@@ -9,6 +9,16 @@ semantics the JAX package reproduces.
 The serving path's pieces live here too: ``BasicConv(fold_bn=True)`` (a
 biased conv and no BN, for weights folded by ``models/fold_bn.py``) and
 the int8 side of the JAX package's ``Conv2d`` and ``max_pool2d``.
+
+A compute dtype (``Conv2d.compute_dtype``, set by ``RFBNet(dtype=...)``)
+runs the JAX package's ``dtype=bfloat16`` model: parameters stay float32;
+a conv casts its input and kernel to bfloat16 and emits bfloat16, then adds
+its bias in bfloat16 (``promote_dtype``, then ``y + bias``); BN takes the
+bf16 map with its float32 statistics and emits bf16 (``nn.BatchNorm2d``
+computes in float32 and rounds once, as flax's ``dtype=bf16`` BN does);
+the ReLU, the pools and the RFB blocks' ``out·scale + shortcut`` follow
+the type of their inputs. An int8 conv rescales in float32 and emits the
+compute dtype.
 """
 
 from __future__ import annotations
@@ -89,6 +99,10 @@ class Conv2d(nn.Conv2d):
     input is taken as already quantized at this conv's ``act_scale``.
     """
 
+    # None: float32 throughout; torch.bfloat16: the JAX package's
+    # dtype=bfloat16 conv (see the module docstring)
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         for name in ("act_scale", "kernel_int8", "kernel_scale",
@@ -114,7 +128,13 @@ class Conv2d(nn.Conv2d):
                 raise TypeError("an int8 activation reached a float conv: "
                                 "its producer's out_scale chains it to a "
                                 "conv that was not quantized")
-            return super().forward(x)
+            dt = self.compute_dtype
+            if dt is None:
+                return super().forward(x)
+            y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+            if self.bias is not None:
+                y = y + self.bias.to(dt)[None, :, None, None]
+            return y
         x8 = x if x.dtype == torch.int8 else quantize_act(x, self.act_scale)
         acc = conv2d_int8(x8, self.kernel_int8, self.stride, self.padding,
                           self.dilation)
@@ -124,7 +144,7 @@ class Conv2d(nn.Conv2d):
             y = y + self.bias[None, :, None, None]
         if self.out_scale is not None:
             return quantize_act(y, self.out_scale)
-        return y
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
 
 class MaxPool2d(nn.MaxPool2d):

@@ -25,6 +25,14 @@ With ``fold_bn`` (the serving path, ``models/fold_bn.py``) every
 ``BasicConv`` is a biased conv without BN, and a model with a CT head runs
 the fused serving head ``ct_attention_serving`` in its place. Its convs
 take the int8 path once ``models/quantize.py`` attaches their scales.
+
+``dtype=torch.bfloat16`` builds the JAX package's ``build_net(...,
+dtype=jnp.bfloat16)`` for evaluation and serving: float32 parameters, bf16
+convs, BN and RFB blocks (``models/layers.py``), the CT projections in
+bf16 (a product, then its bias, in bf16), the CT attention's bf16 kernels;
+loc and conf_feat come out float32, conf and obj float32 for evaluation
+and bf16 on the serving path, as the JAX package returns them. A bf16
+model has no training forward yet (the next slice of the port).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ct_tpu_torch import resolve_device
@@ -199,12 +208,17 @@ class RFBNet(nn.Module):
     """The detector. Input NCHW float images (BGR, mean-subtracted)."""
 
     def __init__(self, task: TaskSpec, size: int = 300,
-                 fold_bn: bool = False, ct_flash: bool = True):
+                 fold_bn: bool = False, ct_flash: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"RFBNet: compute dtype {dtype}: float32 or "
+                             "bfloat16")
         self.task = task
         self.size = size
         self.fold_bn = fold_bn
         self.ct_flash = ct_flash
+        self.dtype = dtype
         src_c = task.src_cls_dim
 
         layers: List[nn.Module] = []
@@ -265,11 +279,36 @@ class RFBNet(nn.Module):
             self.register_buffer("scale", torch.tensor([CT_SCALE]))
             if task.setting == "incre":
                 self.fc_base = nn.Linear(src_c, src_c)
+        if dtype != torch.float32:
+            for m in self.modules():
+                if isinstance(m, Conv2d):
+                    m.compute_dtype = dtype
+
+    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """A CT projection as the JAX package's ``nn.Dense``: in float32
+        the layer itself; in bf16 the product of bf16 operands, then the
+        bias, each rounded to bf16."""
+        if self.dtype == torch.float32:
+            return layer(x)
+        dt = self.dtype
+        return F.linear(x.to(dt), layer.weight.to(dt)) + layer.bias.to(dt)
+
+    def _cm_dense(self, layer: nn.Linear,
+                  conf_cm: torch.Tensor) -> torch.Tensor:
+        """The class-major projection W·conf + b, in conf's type."""
+        dt = conf_cm.dtype
+        return (torch.einsum("oc,bcp->bop", layer.weight.to(dt), conf_cm)
+                + layer.bias.to(dt)[None, :, None])
 
     def forward(self, x: torch.Tensor) -> Predictions:
         task = self.task
         src_c = task.src_cls_dim
         b = x.shape[0]
+        if self.training and self.dtype != torch.float32:
+            raise NotImplementedError(
+                "RFBNet: a bfloat16 model has no training forward yet; bf16 "
+                "training is the next slice of the port (ROADMAP Queue 1 "
+                "item 4, bf16 training)")
 
         sources = []
         fused = self.fused_relu_idx if self.training else None
@@ -313,8 +352,11 @@ class RFBNet(nn.Module):
         else:
             conf_feat = torch.cat(conf, dim=1)
             conf_out = conf_feat
-        return Predictions(loc.float(), conf_out.float(), obj.float(),
-                           conf_feat.float())
+        # the serving path keeps its scores in the compute dtype, as the
+        # JAX package's fold_bn model does; loc is always float32
+        score_t = self.dtype if self.fold_bn else torch.float32
+        return Predictions(loc.float(), conf_out.to(score_t),
+                           obj.to(score_t), conf_feat.float())
 
     def _context_transformer(self, conf_cm: torch.Tensor,
                              keys: torch.Tensor) -> torch.Tensor:
@@ -325,12 +367,11 @@ class RFBNet(nn.Module):
         delta, then a cosine classifier against OBJ_Target at the fixed
         scale. ``conf_cm`` is [B, C, P]; returns [B, P, num_out].
         """
-        k = (self.phi(keys) + keys).contiguous()           # [B, K, C]
-        v = (self.g(keys) + keys).contiguous()             # [B, K, C]
-        q_cm = (torch.einsum("oc,bcp->bop", self.theta.weight, conf_cm)
-                + self.theta.bias[None, :, None] + conf_cm).contiguous()
+        k = (self._dense(self.phi, keys) + keys).contiguous()  # [B, K, C]
+        v = (self._dense(self.g, keys) + keys).contiguous()    # [B, K, C]
+        q_cm = (self._cm_dense(self.theta, conf_cm) + conf_cm).contiguous()
         novel = ct_attention_cm(q_cm, k, v, conf_cm.contiguous(), self.Wz,
-                                flash=self.ct_flash)
+                                flash=self.ct_flash).float()
         novel = novel / torch.sqrt(
             torch.sum(novel * novel, dim=1, keepdim=True))
         novel = torch.einsum("nc,bcp->bnp", self.OBJ_Target.weight,
@@ -342,9 +383,9 @@ class RFBNet(nn.Module):
         """[B, N, P] novel scores → [B, P, num_out], after the residual
         ``fc_base`` projection of the source classes for ``incre``."""
         if self.task.setting == "incre":
-            base = (torch.einsum("oc,bcp->bop", self.fc_base.weight, conf_cm)
-                    + self.fc_base.bias[None, :, None] + conf_cm)
-            return torch.cat([base, novel], dim=1).transpose(1, 2)
+            base = self._cm_dense(self.fc_base, conf_cm) + conf_cm
+            return torch.cat([base.to(novel.dtype), novel],
+                             dim=1).transpose(1, 2)
         return novel.transpose(1, 2)
 
     def _context_transformer_serving(self, conf_cm: torch.Tensor,
@@ -353,30 +394,34 @@ class RFBNet(nn.Module):
         package): θ projection, attention, residual, ℓ2 normalisation and
         the cosine classifier in one ``ct_attention_serving`` call that
         reads the class-major conf once. Returns [B, P, num_out]."""
-        k = (self.phi(keys) + keys).contiguous()           # [B, K, C]
-        v = (self.g(keys) + keys).contiguous()             # [B, K, C]
+        dt = conf_cm.dtype
+        k = (self._dense(self.phi, keys) + keys).contiguous()  # [B, K, C]
+        v = (self._dense(self.g, keys) + keys).contiguous()    # [B, K, C]
         novel = ct_attention_serving(
-            conf_cm.contiguous(), k, v, self.theta.weight.t().contiguous(),
-            self.theta.bias, self.Wz, self.OBJ_Target.weight,
-            CT_SCALE)                                      # [B, N, P]
+            conf_cm.contiguous(), k, v,
+            self.theta.weight.t().to(dt).contiguous(), self.theta.bias,
+            self.Wz, self.OBJ_Target.weight.to(dt), CT_SCALE)  # [B, N, P]
         return self._with_base(conf_cm, novel)
 
 
 def build_net(task: TaskSpec, size: int = 300, device="cuda",
-              fold_bn: bool = False, ct_flash: bool = True) -> RFBNet:
+              fold_bn: bool = False, ct_flash: bool = True,
+              dtype: torch.dtype = torch.float32) -> RFBNet:
     """The detector for ``task`` at ``size`` (300, 512, or the size-64
     test model), in eval mode on ``device`` (``.train()`` for training);
-    ``fold_bn`` builds the serving model, whose weights come folded, and
+    ``fold_bn`` builds the serving model, whose weights come folded,
     ``ct_flash=False`` trains the CT attention with its blockwise
-    backward."""
+    backward, and ``dtype=torch.bfloat16`` computes in bfloat16 (the JAX
+    package's ``--bf16``; evaluation and serving only)."""
     if size not in (64, 300, 512):
         raise ValueError("Only RFBNet300 and RFBNet512 are supported "
                          "(plus the size-64 test variant).")
-    return RFBNet(task, size, fold_bn, ct_flash).to(
+    return RFBNet(task, size, fold_bn, ct_flash, dtype).to(
         resolve_device(device)).eval()
 
 
 def eval_scores(preds: Predictions) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Softmaxed (conf, obj), computed in float32."""
-    return (torch.softmax(preds.conf.float(), dim=-1),
-            torch.softmax(preds.obj.float(), dim=-1))
+    """Softmaxed (conf, obj), computed in float32 and emitted in the
+    logits' type (bf16 on the bf16 serving path), as the JAX package's."""
+    return (torch.softmax(preds.conf.float(), dim=-1).to(preds.conf.dtype),
+            torch.softmax(preds.obj.float(), dim=-1).to(preds.obj.dtype))

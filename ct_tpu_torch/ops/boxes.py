@@ -64,7 +64,11 @@ def encode(
     g_cxcy = (matched[..., :2] + matched[..., 2:]) / 2 - priors[..., :2]
     g_cxcy = g_cxcy / (variances[0] * priors[..., 2:])
     g_wh = (matched[..., 2:] - matched[..., :2]) / priors[..., 2:]
-    g_wh = torch.log(g_wh) / variances[1]
+    # the log in float64, rounded once: torch's multithreaded float32 log
+    # on the CPU has been measured off by up to 1.4e-4 (relative) on one
+    # worker thread's share of a tensor, in processes that also run XLA
+    # (ROADMAP Queue 3 item 1); the float64 one was exact in the same runs
+    g_wh = torch.log(g_wh.double()).to(g_wh.dtype) / variances[1]
     return torch.cat([g_cxcy, g_wh], dim=-1)
 
 

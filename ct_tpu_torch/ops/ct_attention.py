@@ -45,9 +45,24 @@ The serving path's fused head is ``ct_attention_serving``
 residual, the ℓ2 normalisation and the cosine classifier in one pass, from
 the class-major conf [B, C, P] to scores [B, N, P]. Forward only, as in the
 JAX package.
+
+bfloat16: ``ct_attention_cm``, ``ct_attention``, ``ct_attention_variant``
+and ``ct_attention_serving`` also take bf16 q, k, v and base (conf, Wθ and
+OBJ_Target for the serving head) with float32 wz (and bθ), as the JAX
+package's ``--bf16`` models call them, and return bf16. They compute what
+the JAX kernels compute on bf16 operands: f32 scores from bf16 products,
+the weights e = exp(s − max s) rounded to bf16 before P·V, the denominator
+Σ e of those rounded weights in f32, the output rounded to bf16 (and the
+serving head's q and normalised novel rounded where JAX rounds them). CUDA
+tensors go to the bf16 kernels (``csrc/ct_attention_bf16.cuh``), counted on
+``ct_attention_cm_bf16.launches`` and its siblings; CPU tensors to the
+plain bf16 versions. They have no backward: bf16 training is the next
+slice, and a bf16 call that would need a gradient raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -70,17 +85,103 @@ def ct_attention_reference_cm(
     return base_cm + delta * wz[None, :, None]
 
 
+BF16 = torch.bfloat16
+
+
+def bf16_step(x: float) -> float:
+    """One bfloat16 step at |x|: 2^(⌊log2 |x|⌋ − 7), between 2⁻⁸·|x| and
+    2⁻⁷·|x| (8 significant bits). The band of the bf16 kernels against
+    their plain versions is one step at the largest output: the two sum
+    in another f32 order, and where a value lies that close to a rounding
+    boundary its bf16 result moves by one step."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def _weighted_bf16(s, v):
+    """The bf16 kernels' attention on f32 scores s [B, K, P] and bf16 values
+    v [B, K, C] → delta [B, C, P] f32: e = exp(s − max s) rounded to bf16,
+    Σ e·v over Σ e, both in f32 (the ones column of v in the JAX kernel)."""
+    e = torch.exp(s - s.amax(dim=1, keepdim=True)).to(BF16).float()
+    return torch.einsum("bkp,bkc->bcp", e, v.float()) / e.sum(dim=1,
+                                                              keepdim=True)
+
+
+def ct_attention_reference_cm_bf16(q_cm, k, v, base_cm, wz):
+    """The plain bf16 class-major forward (the JAX ``_kernel_cm`` on bf16
+    operands) → [B, C, P] bf16."""
+    s = torch.einsum("bkc,bcp->bkp", k.float(), q_cm.float())
+    out = base_cm.float() + _weighted_bf16(s, v) * wz[None, :, None]
+    return out.to(BF16)
+
+
+def _no_grad_bf16(fn, *tensors):
+    """Raise where a bf16 call would need a gradient: the bf16 kernels are
+    forwards only."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{fn}: the bfloat16 CT attention has no backward; bf16 training "
+            "is the next slice of the port (ROADMAP Queue 1 item 4, bf16 "
+            "training)")
+
+
+def _f32_only(fn, t):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{fn}: {t.dtype} has no kernel here; bf16 training "
+                        "is the next slice of the port (ROADMAP Queue 1 item "
+                        "4, bf16 training)")
+
+
+def _padded_classes(c: int) -> int:
+    """The bf16 walk's class count: C and the ones column (csrc
+    ``padded_classes``)."""
+    return 16 if c < 16 else 64
+
+
+def _launch_bf16(wrapper, q, k, v, base, wz, row_major: bool):
+    """Launch a bf16 attention forward, with its scratch for the padded k
+    and v allocated here → out, bf16 like base."""
+    b, p, c = q.shape if row_major else (q.shape[0], q.shape[2], q.shape[1])
+    kk = k.shape[1]
+    out = torch.empty_like(base)
+    scratch = q.new_empty((2, b, kk, _padded_classes(c)))
+    kernels.launch(wrapper, wrapper.__name__,
+                   (q, k, v, base, wz, out, scratch), (b, c, p, kk))
+    return out
+
+
+def ct_attention_cm_bf16(q_cm, k, v, base_cm, wz) -> torch.Tensor:
+    """The bf16 class-major eval forward → [B, C, P] bf16; forward only.
+    CUDA tensors go to the kernel, counted on
+    ``ct_attention_cm_bf16.launches``; CPU tensors to the plain version."""
+    _check(q_cm, k, v, base_cm, wz, "ct_attention_cm_bf16")
+    if q_cm.dtype != BF16:
+        raise TypeError(f"ct_attention_cm_bf16: q_cm is {q_cm.dtype}")
+    _no_grad_bf16("ct_attention_cm_bf16", q_cm, k, v, base_cm, wz)
+    if _device("ct_attention_cm_bf16", q_cm) == "cpu":
+        return ct_attention_reference_cm_bf16(q_cm, k, v, base_cm, wz)
+    return _launch_bf16(ct_attention_cm_bf16, q_cm, k, v, base_cm, wz, False)
+
+
+ct_attention_cm_bf16.launches = 0
+
+
 def _check(q, k, v, base, wz, fn: str = "ct_attention_cm",
            row_major: bool = False):
     """Raise on what the kernels do not take: q and base [B, C, P] (or
-    [B, P, C] with ``row_major``), k and v [B, K, C], wz [C], float32 on
-    one device, C at most 64."""
+    [B, P, C] with ``row_major``), k and v [B, K, C], wz [C], on one
+    device; q, k, v and base all float32, C at most 64, or all bfloat16
+    with wz float32, C at most 63 (the bf16 walk's ones column)."""
     names = (("q", "k", "v", "base", "wz") if row_major
              else ("q_cm", "k", "v", "base_cm", "wz"))
+    dt = q.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{fn}: {names[0]} is {dt}, the kernels take "
+                        "float32 or bfloat16")
     for name, t in zip(names, (q, k, v, base, wz)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} is {t.dtype}, "
-                            "the kernel takes float32")
+        want = torch.float32 if name == "wz" else dt
+        if t.dtype != want:
+            raise TypeError(f"{fn}: {name} is {t.dtype}; with {names[0]} "
+                            f"{dt} the kernel takes {want}")
         if t.device != q.device:
             raise ValueError(f"{fn}: {name} is on {t.device}, "
                              f"q on {q.device}")
@@ -101,9 +202,10 @@ def _check(q, k, v, base, wz, fn: str = "ct_attention_cm",
             f"base {tuple(base.shape)}, wz {tuple(wz.shape)}")
     if min(b, c, p, kk) < 1:
         raise ValueError(f"{fn}: empty input")
-    if c > MAX_CLASSES:
-        raise ValueError(f"{fn}: C={c} exceeds the kernel's "
-                         f"{MAX_CLASSES} classes")
+    most = MAX_CLASSES - (dt == torch.bfloat16)
+    if c > most:
+        raise ValueError(f"{fn}: C={c} exceeds the {dt} kernel's "
+                         f"{most} classes")
 
 
 def ct_attention_cm_stats_reference(q_cm, k, v, base_cm, wz):
@@ -159,6 +261,7 @@ def ct_attention_cm_stats(q_cm, k, v, base_cm, wz):
     z [B,1,P]), float32; the kernel on CUDA tensors, else the plain
     version."""
     _check(q_cm, k, v, base_cm, wz)
+    _f32_only("ct_attention_cm_stats", q_cm)
     if _device("ct_attention_cm_stats", q_cm) == "cpu":
         return ct_attention_cm_stats_reference(q_cm, k, v, base_cm, wz)
     b, c, p = q_cm.shape
@@ -177,6 +280,7 @@ def ct_attention_cm_bwd_flash(q_cm, k, v, wz, g_cm, m, z, colsum):
     row max ``m`` and denominator ``z`` and ``colsum`` = Σ_c g·delta·wz,
     all [B,1,P]; the kernel on CUDA tensors, else the plain version."""
     _check(q_cm, k, v, g_cm, wz)
+    _f32_only("ct_attention_cm_bwd_flash", q_cm)
     b, c, p = q_cm.shape
     for name, t in (("m", m), ("z", z), ("colsum", colsum)):
         if (tuple(t.shape) != (b, 1, p) or t.dtype != torch.float32
@@ -221,6 +325,7 @@ def ct_attention_cm_bwd(q_cm, k, v, wz, g_cm):
     as ``_bwd_call_cm`` takes them; the kernel on CUDA tensors, else the
     plain version."""
     _check(q_cm, k, v, g_cm, wz, "ct_attention_cm_bwd")
+    _f32_only("ct_attention_cm_bwd", q_cm)
     if _device("ct_attention_cm_bwd", q_cm) == "cpu":
         return ct_attention_cm_bwd_reference(q_cm, k, v, wz, g_cm)
     return _blockwise_bwd(ct_attention_cm_bwd, q_cm, k, v, wz, g_cm, False)
@@ -279,6 +384,8 @@ def _cm_forward(q_cm, k, v, base_cm, wz):
     """The eval forward: the kernel on CUDA tensors, counted on
     ``ct_attention_cm.launches``; the plain version on CPU tensors."""
     _check(q_cm, k, v, base_cm, wz)
+    if q_cm.dtype == BF16:
+        return ct_attention_cm_bf16(q_cm, k, v, base_cm, wz)
     if _device("ct_attention_cm", q_cm) == "cpu":
         return ct_attention_reference_cm(q_cm, k, v, base_cm, wz)
     b, c, p = q_cm.shape
@@ -296,15 +403,19 @@ def ct_attention_cm(
     wz: torch.Tensor,       # [C]
     flash: bool = True,
 ) -> torch.Tensor:
-    """Class-major CT attention → [B, C, P] float32, differentiable.
+    """Class-major CT attention → [B, C, P] in q's type, float32
+    differentiable.
 
     With a gradient to take and ``flash`` it runs the stats forward, whose
     backward is the flash kernel; with ``flash=False`` (the reference's
     ``CT_ATTENTION_FLASH=0``) the eval forward, whose backward is the
     blockwise kernel. Without a gradient CUDA tensors go to the eval
     kernel, whose launches ``ct_attention_cm.launches`` counts, and CPU
-    tensors to the plain version.
+    tensors to the plain version. bf16 inputs go to
+    ``ct_attention_cm_bf16`` (forward only).
     """
+    if q_cm.dtype == BF16:
+        return ct_attention_cm_bf16(q_cm, k, v, base_cm, wz)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q_cm, k, v, base_cm, wz)):
         fn = _CTAttentionCM if flash else _CTAttentionCMBlockwise
@@ -332,10 +443,40 @@ def ct_attention_bwd_reference(q, k, v, wz, g):
     return dq.transpose(1, 2), dk, dv, dwz
 
 
+def ct_attention_reference_bf16(q, k, v, base, wz, exp_bf16=False):
+    """The plain bf16 row-major forward (the JAX ``_kernel`` on bf16
+    operands, and with ``exp_bf16`` the bench's bfloat16-exponent variant,
+    whose exponential's argument is rounded to bf16 too) → [B, P, C] bf16."""
+    s = torch.einsum("bkc,bpc->bkp", k.float(), q.float())
+    x = s - s.amax(dim=1, keepdim=True)
+    if exp_bf16:
+        x = x.to(BF16).float()
+    e = torch.exp(x).to(BF16).float()
+    delta = torch.einsum("bkp,bkc->bpc", e, v.float()) / e.sum(
+        dim=1)[..., None]
+    return (base.float() + delta * wz).to(BF16)
+
+
+def ct_attention_bf16(q, k, v, base, wz) -> torch.Tensor:
+    """The bf16 row-major forward → [B, P, C] bf16; forward only. CUDA
+    tensors go to the kernel, counted on ``ct_attention_bf16.launches``;
+    CPU tensors to the plain version."""
+    _check(q, k, v, base, wz, "ct_attention_bf16", row_major=True)
+    _no_grad_bf16("ct_attention_bf16", q, k, v, base, wz)
+    if _device("ct_attention_bf16", q) == "cpu":
+        return ct_attention_reference_bf16(q, k, v, base, wz)
+    return _launch_bf16(ct_attention_bf16, q, k, v, base, wz, True)
+
+
+ct_attention_bf16.launches = 0
+
+
 def _rm_forward(q, k, v, base, wz):
     """The row-major forward: the kernel on CUDA tensors, counted on
     ``ct_attention.launches``; the plain version on CPU tensors."""
     _check(q, k, v, base, wz, "ct_attention", row_major=True)
+    if q.dtype == BF16:
+        return ct_attention_bf16(q, k, v, base, wz)
     if _device("ct_attention", q) == "cpu":
         return ct_attention_reference(q, k, v, base, wz)
     b, p, c = q.shape
@@ -351,6 +492,7 @@ def ct_attention_bwd(q, k, v, wz, g):
     in one kernel, with no transposes; the kernel on CUDA tensors, else the
     plain version."""
     _check(q, k, v, g, wz, "ct_attention_bwd", row_major=True)
+    _f32_only("ct_attention_bwd", q)
     if _device("ct_attention_bwd", q) == "cpu":
         return ct_attention_bwd_reference(q, k, v, wz, g)
     return _blockwise_bwd(ct_attention_bwd, q, k, v, wz, g, True)
@@ -386,7 +528,10 @@ def ct_attention(
     """Row-major CT attention → [B, P, C] float32, differentiable:
     ``base + softmax(q·kᵀ)·v·wz``. CUDA tensors go to the forward kernel,
     whose launches ``ct_attention.launches`` counts, and the gradient to the
-    row-major backward kernel; CPU tensors to the plain versions."""
+    row-major backward kernel; CPU tensors to the plain versions. bf16
+    inputs go to ``ct_attention_bf16`` (forward only)."""
+    if q.dtype == BF16:
+        return ct_attention_bf16(q, k, v, base, wz)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, base, wz)):
         return _CTAttention.apply(q, k, v, base, wz)
@@ -413,6 +558,8 @@ def ct_attention_variant(q, k, v, base, wz) -> torch.Tensor:
     kernel, whose launches ``ct_attention_variant.launches`` counts; CPU
     tensors to the plain version."""
     _check(q, k, v, base, wz, "ct_attention_variant", row_major=True)
+    if q.dtype == BF16:
+        return ct_attention_variant_bf16(q, k, v, base, wz)
     if _device("ct_attention_variant", q) == "cpu":
         return ct_attention_variant_reference(q, k, v, base, wz)
     b, p, c = q.shape
@@ -423,6 +570,23 @@ def ct_attention_variant(q, k, v, base, wz) -> torch.Tensor:
 
 
 ct_attention_variant.launches = 0
+
+
+def ct_attention_variant_bf16(q, k, v, base, wz) -> torch.Tensor:
+    """The bench's bfloat16-exponent variant on bf16 inputs → [B, P, C]
+    bf16: the bf16 row-major forward with the exponential's argument
+    rounded to bf16 too, as ``make_variant(jnp.bfloat16, ...)`` computes
+    on the JAX bench's bf16 inputs. CUDA tensors go to the kernel, counted
+    on ``ct_attention_variant_bf16.launches``; CPU tensors to the plain
+    version."""
+    _check(q, k, v, base, wz, "ct_attention_variant_bf16", row_major=True)
+    _no_grad_bf16("ct_attention_variant_bf16", q, k, v, base, wz)
+    if _device("ct_attention_variant_bf16", q) == "cpu":
+        return ct_attention_reference_bf16(q, k, v, base, wz, exp_bf16=True)
+    return _launch_bf16(ct_attention_variant_bf16, q, k, v, base, wz, True)
+
+
+ct_attention_variant_bf16.launches = 0
 
 
 MAX_NOVEL = 64     # the serving kernel's widest classifier
@@ -449,6 +613,69 @@ def ct_attention_serving_reference(
     return torch.einsum("nc,bcp->bnp", obj_target, novel) * scale
 
 
+def ct_attention_serving_reference_bf16(conf_cm, k, v, w_theta, b_theta, wz,
+                                        obj_target, scale: float = 5.0):
+    """The plain bf16 serving head (the JAX ``_serving_kernel`` on bf16
+    conf, k, v, Wθ and OBJ_Target, f32 bθ and wz) → [B, N, P] bf16: q and
+    the normalised novel rounded to bf16 where JAX rounds them, the
+    attention as ``ct_attention_cm_bf16``'s."""
+    conf = conf_cm.float()
+    q = (torch.einsum("co,bcp->bop", w_theta.float(), conf)
+         + b_theta[None, :, None] + conf).to(BF16)
+    s = torch.einsum("bkc,bcp->bkp", k.float(), q.float())
+    novel = conf + _weighted_bf16(s, v) * wz[None, :, None]
+    novel = (novel * torch.rsqrt((novel * novel).sum(dim=1, keepdim=True))
+             ).to(BF16)
+    return (torch.einsum("nc,bcp->bnp", obj_target.float(), novel.float())
+            * scale).to(BF16)
+
+
+def ct_attention_serving_bf16(conf_cm, k, v, w_theta, b_theta, wz,
+                              obj_target, scale: float = 5.0) -> torch.Tensor:
+    """The bf16 serving head → [B, N, P] bf16; forward only. CUDA tensors
+    go to the kernel, counted on ``ct_attention_serving_bf16.launches``;
+    CPU tensors to the plain version."""
+    _check_serving(conf_cm, k, v, w_theta, b_theta, wz, obj_target,
+                   "ct_attention_serving_bf16")
+    if conf_cm.dtype != BF16:
+        raise TypeError(f"ct_attention_serving_bf16: conf is {conf_cm.dtype}")
+    _no_grad_bf16("ct_attention_serving_bf16", conf_cm, k, v, w_theta,
+                  b_theta, wz, obj_target)
+    if _device("ct_attention_serving_bf16", conf_cm) == "cpu":
+        return ct_attention_serving_reference_bf16(
+            conf_cm, k, v, w_theta, b_theta, wz, obj_target, scale)
+    b, c, p = conf_cm.shape
+    kk, n = k.shape[1], obj_target.shape[0]
+    out = conf_cm.new_empty((b, n, p))
+    scratch = conf_cm.new_empty((2, b, kk, _padded_classes(c)))
+    kernels.launch(ct_attention_serving_bf16, "ct_attention_serving_bf16",
+                   (conf_cm, k, v, w_theta, b_theta, wz, obj_target, out,
+                    scratch), (b, c, p, kk, n, scale))
+    return out
+
+
+ct_attention_serving_bf16.launches = 0
+
+
+def _check_serving(conf_cm, k, v, w_theta, b_theta, wz, obj_target, fn):
+    """``_check`` of the attention's operands, then Wθ [C, C] and
+    OBJ_Target [N, C] in conf's type and bθ [C] float32, N at most 64."""
+    _check(conf_cm, k, v, conf_cm, wz, fn)
+    c = conf_cm.shape[1]
+    n = obj_target.shape[0]
+    dt = conf_cm.dtype
+    for name, t, shape, want in (("w_theta", w_theta, (c, c), dt),
+                                 ("b_theta", b_theta, (c,), torch.float32),
+                                 ("obj_target", obj_target, (n, c), dt)):
+        if (tuple(t.shape) != shape or t.dtype != want
+                or t.device != conf_cm.device):
+            raise ValueError(f"{fn}: {name} must be {want} {list(shape)} on "
+                             f"{conf_cm.device}")
+    if not 1 <= n <= MAX_NOVEL:
+        raise ValueError(f"{fn}: N={n} classes, the kernel takes 1 to "
+                         f"{MAX_NOVEL}")
+
+
 def ct_attention_serving(conf_cm, k, v, w_theta, b_theta, wz, obj_target,
                          scale: float = 5.0) -> torch.Tensor:
     """Fused serving CT head → cosine-classifier scores [B, N, P] float32:
@@ -459,20 +686,14 @@ def ct_attention_serving(conf_cm, k, v, w_theta, b_theta, wz, obj_target,
 
     CUDA tensors go to the kernel, whose launches
     ``ct_attention_serving.launches`` counts; CPU tensors to the plain
-    version."""
-    _check(conf_cm, k, v, conf_cm, wz, "ct_attention_serving")
+    version. bf16 conf goes to ``ct_attention_serving_bf16``."""
+    if conf_cm.dtype == BF16:
+        return ct_attention_serving_bf16(conf_cm, k, v, w_theta, b_theta, wz,
+                                         obj_target, scale)
+    _check_serving(conf_cm, k, v, w_theta, b_theta, wz, obj_target,
+                   "ct_attention_serving")
     c = conf_cm.shape[1]
     n = obj_target.shape[0]
-    for name, t, shape in (("w_theta", w_theta, (c, c)),
-                           ("b_theta", b_theta, (c,)),
-                           ("obj_target", obj_target, (n, c))):
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or t.device != conf_cm.device):
-            raise ValueError(f"ct_attention_serving: {name} must be float32 "
-                             f"{list(shape)} on {conf_cm.device}")
-    if not 1 <= n <= MAX_NOVEL:
-        raise ValueError(f"ct_attention_serving: N={n} classes, the kernel "
-                         f"takes 1 to {MAX_NOVEL}")
     if _device("ct_attention_serving", conf_cm) == "cpu":
         return ct_attention_serving_reference(conf_cm, k, v, w_theta,
                                               b_theta, wz, obj_target, scale)

@@ -6,7 +6,9 @@
 
 Kept from the reference eval loop: the +1 pixel area in IoU
 (``pixel_offset``) and the ``>=`` k-th-score cap, with 32 rows of slack
-for score ties. Ties in the candidate and cap orderings resolve to the
+for score ties. bf16 scores (the bf16 serving path) are ranked and
+thresholded in bf16, as the JAX package ranks them, where ties are common;
+the detections' scores come out float32. Ties in the candidate and cap orderings resolve to the
 lower index first (a stable sort), as ``jax.lax.top_k`` does. The serving
 options of the JAX package carry over: ``approx_top_k`` (candidates by
 ``grouped_topk``) and ``pool_size`` (per-class work inside a pool of each
@@ -208,8 +210,11 @@ def batched_nms(
         best = torch.where(best > score_threshold, best, neg_inf)
         _, pool_i = grouped_topk(best, m)                    # [B, M]
         boxes = torch.gather(boxes, 1, pool_i[..., None].expand(-1, -1, 4))
+        # float32 from here, as the JAX package gathers the scores beside
+        # the boxes (one float32 payload): bf16 scores then meet the
+        # threshold in float32, where the exact path compares them in bf16
         fg = torch.gather(fg, 1, pool_i[..., None].expand(
-            -1, -1, num_classes - 1))
+            -1, -1, num_classes - 1)).float()
         select, k = _sort_desc, min(top_k, m)
     fg = fg.transpose(1, 2)                                  # [B, C-1, P|M]
     s = torch.where(fg > score_threshold, fg, neg_inf)
@@ -239,6 +244,6 @@ def batched_nms(
                          order[..., None].expand(-1, -1, 4))
     out_c = torch.gather(c_ids, 1, order)
     zero = torch.zeros((), device=scores.device)
-    return Detections(out_b, torch.where(valid, sel, zero),
+    return Detections(out_b, torch.where(valid, sel, zero).float(),
                       torch.where(valid, out_c, torch.zeros_like(out_c)),
                       valid)

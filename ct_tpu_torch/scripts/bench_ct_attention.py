@@ -4,17 +4,23 @@ The port of ``scripts/bench_ct_attention.py``:
 
     python -m ct_tpu_torch.scripts.bench_ct_attention [--device cuda|cpu]
         [--iters N] [--batch B] [--anchors P] [--keys K] [--classes C]
+        [--dtype bfloat16|float32]
 
 At B=128, P=11,620, K=1,858, C=60 (the defaults) it times the plain
 version, the production row-major forward (``ct_attention``) and the
 variants of ``make_variant``, each in ms and TFLOP/s (4·B·P·K·C flops)
-with its max |Δ| against the production kernel. Of the JAX bench's 12
-variants (exponential in float32 or bfloat16, the denominator fused or
-not, block_q 512, 1024, 2048) only the exponential's type changes what the
-CUDA kernel computes, so it times the two: each line names the six
-variants it stands for. Inputs
-are seeded normal × 0.3 in float32 (the JAX bench's are bfloat16; the
-port's kernels take float32). Run it with nothing else on the card.
+with its max |Δ| against the production kernel. Inputs are seeded normal
+× 0.3 in bfloat16, with wz in float32, as the JAX bench feeds them; then
+the port's bf16 kernels run (``ct_attention_bf16`` and
+``ct_attention_variant_bf16``). ``--dtype float32`` runs the float32
+kernels on the same values in float32. Of the JAX bench's 12 variants
+(exponential in float32 or bfloat16, the denominator fused or not,
+block_q 512, 1024, 2048) the CUDA kernels time two, the exponential's
+type: block_q has no counterpart, and each kernel takes its denominator
+from the weights it multiplies v by (the fused form; on bf16 inputs the
+JAX bench's unfused exp=float32 variant sums the weights before their
+rounding to bf16 instead, at the same cost). Each line names the six
+variants it stands for. Run it with nothing else on the card.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import torch
 
 from ct_tpu_torch import resolve_device
 from ct_tpu_torch.ops.ct_attention import (
-    ct_attention, ct_attention_reference, ct_attention_variant,
+    ct_attention, ct_attention_reference, ct_attention_reference_bf16,
+    ct_attention_variant,
 )
 from ct_tpu_torch.scripts import device_name
 from ct_tpu_torch.utils.timing import time_calls
@@ -43,9 +50,10 @@ def make_variant(exp_dtype, block_q, fuse_denom=False):
 
     ``block_q`` (the TPU kernel's query block) has no counterpart in the
     CUDA kernel, whose block is its 128 threads, and ``fuse_denom`` (the
-    denominator from a ones column of v, one MXU product on the TPU)
-    computes the same float32 sums either way here: both are accepted, kept
-    on the returned function and change nothing."""
+    denominator from a ones column of v, one MXU product on the TPU) is
+    the kernels' form either way (see the module docstring): both are
+    accepted, kept on the returned function and change nothing. On bf16
+    inputs the two wrappers run their bf16 kernels."""
     if exp_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"make_variant: exp_dtype {exp_dtype}")
     kernel = (ct_attention_variant if exp_dtype == torch.bfloat16
@@ -67,6 +75,9 @@ def parse_args(argv=None):
     ap.add_argument("--anchors", type=int, default=11620)
     ap.add_argument("--keys", type=int, default=1858)
     ap.add_argument("--classes", type=int, default=60)
+    ap.add_argument("--dtype", choices=["bfloat16", "float32"],
+                    default="bfloat16",
+                    help="q, k, v and base (wz is float32 either way)")
     return ap.parse_args(argv)
 
 
@@ -78,19 +89,24 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(0)
     b, p, kk, c = args.batch, args.anchors, args.keys, args.classes
 
+    dtype = getattr(torch, args.dtype)
+
     def mk(*shape):
         return torch.from_numpy(
-            rng.standard_normal(shape, np.float32) * 0.3).to(device)
+            rng.standard_normal(shape, np.float32) * 0.3).to(device, dtype)
 
     q, k, v, base = mk(b, p, c), mk(b, kk, c), mk(b, kk, c), mk(b, p, c)
     wz = torch.from_numpy(rng.standard_normal(c, np.float32)).to(device)
     inputs = (q, k, v, base, wz)
+    plain = (ct_attention_reference_bf16 if dtype == torch.bfloat16
+             else ct_attention_reference)
     flops = 4 * b * p * kk * c
     res = {"batch": b, "anchors": p, "keys": kk, "classes": c,
-           "device": device_name(device), "variants": []}
+           "dtype": args.dtype, "device": device_name(device),
+           "variants": []}
 
     with torch.no_grad():
-        t = time_calls(ct_attention_reference, inputs, max(1, args.iters // 3))
+        t = time_calls(plain, inputs, max(1, args.iters // 3))
         print(f"plain version: {t*1e3:.2f} ms  ({flops/t/1e12:.1f} TFLOP/s)",
               flush=True)
         res["plain_ms"] = t * 1e3
@@ -106,7 +122,7 @@ def main(argv=None) -> dict:
         for exp_dtype in (torch.float32, torch.bfloat16):
             fn = make_variant(exp_dtype, BLOCK_Q[0])
             t = time_calls(fn, inputs, args.iters)
-            err = (fn(*inputs) - prod).abs().max().item()
+            err = (fn(*inputs).float() - prod.float()).abs().max().item()
             name = str(exp_dtype).split(".")[-1]
             print(f"exp={name:9s}: {t*1e3:.2f} ms ({flops/t/1e12:.1f} TF/s)"
                   f"  max|Δ|={err:.2e}", flush=True)

@@ -3,13 +3,17 @@
     python -m ct_tpu_torch.test -p 2 --setting incre --split 1 \\
         --load-file .parity_p2/ref_model.pth --save-folder out/ \\
         [--device cuda|cpu] [--retest] [--resume] [--top-k 200] \\
-        [--int8 [--int8-heads] [--calib-images 8]] \\
+        [--int8 [--int8-heads] [--calib-images 8]] [--bf16] \\
         [--approx-topk on] [--pool-size 512]
 
 ``--int8`` runs the serving path: BN folded into the convs, activation
 ranges calibrated on ``--calib-images`` train-split images (never the test
 set), convs in int8 (the heads too with ``--int8-heads``), the fused
-serving CT head. The VOC root comes from ``VOC_ROOT`` (default
+serving CT head. ``--bf16`` computes in bfloat16 as the JAX package's
+``--bf16`` does (float32 parameters, bf16 convs, BN and CT head, the bf16
+CT kernels), with or without ``--int8``; the JAX bench's full serving
+config is ``--int8 --int8-heads --bf16 --approx-topk on --top-k 128
+--pool-size 512``. The VOC root comes from ``VOC_ROOT`` (default
 ``data/VOCdevkit``). Writes ``<save-folder>/inference/detections.pkl``,
 the VOC mAP as ``eval.json`` and the inference rate through the dataset
 layer as ``speed.json``; ``--retest`` re-scores the cached detections.
@@ -33,7 +37,6 @@ logger = logging.getLogger("ct_tpu_torch.test")
 
 # flag → (is it set?, the ROADMAP item that will port it)
 UNPORTED = (
-    ("--bf16", lambda a: a.bf16, "Queue 1 item 4 (bf16)"),
     ("--host-nms", lambda a: a.host_nms,
      "Queue 1 item 3 (host NMS, the port's copy of ct_tpu/native/nms.cpp)"),
     ("--ndev > 1", lambda a: a.ndev > 1,
@@ -85,10 +88,11 @@ def parse_args(argv=None):
                         help="Train-split images for int8 calibration")
     parser.add_argument("--int8-heads", action="store_true",
                         help="With --int8: the loc/conf/obj heads int8 too")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 compute (float32 parameters)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu.")
     # flags of test.py that the port does not run: each raises
-    parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--pallas-ct", choices=["auto", "on", "off"],
                         default=None)
     parser.add_argument("--host-nms", action="store_true")
@@ -199,7 +203,16 @@ def main(argv=None) -> dict:
     else:
         logger.info("Loading weights from %s", path)
         device = resolve_device(args.device)
-        net = build_net(task, img_dim, device=device)
+        if device.type == "cuda":
+            # float32 products in float32, and bf16 ones summed in float32
+            # (preferred_element_type=float32 in the JAX package), as the
+            # train CLI sets them
+            matmul = torch.backends.cuda.matmul
+            matmul.allow_tf32 = False
+            matmul.allow_bf16_reduced_precision_reduction = False
+            torch.backends.cudnn.allow_tf32 = False
+        net = build_net(task, img_dim, device=device,
+                        dtype=torch.bfloat16 if args.bf16 else torch.float32)
         net.load_state_dict(load_reference_pth(path))
         if args.int8:
             images = calibration_images(args, img_dim, args.calib_images)
@@ -216,7 +229,7 @@ def main(argv=None) -> dict:
         speed = {"images": len(dataset), "seconds": seconds,
                  "images_per_s": len(dataset) / seconds,
                  "batch_size": args.batch_size, "device": str(device),
-                 "int8": args.int8}
+                 "int8": args.int8, "bf16": args.bf16}
         if device.type == "cuda":
             speed["device_name"] = torch.cuda.get_device_name(device)
         logger.info("inference: %(images)d images in %(seconds).1f s, "

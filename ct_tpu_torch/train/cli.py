@@ -50,7 +50,9 @@ logger = logging.getLogger("ct_tpu_torch.train")
 
 # flag → (is it set?, the ROADMAP item that will port it)
 UNPORTED = (
-    ("--bf16", lambda a: a.bf16, "Queue 1 item 4 (bf16 training)"),
+    ("--bf16", lambda a: a.bf16,
+     "Queue 1 item 4 (bf16 training, the next slice: bf16 kernels of rows "
+     "2, 3, 4 and 7; the eval CLI runs --bf16)"),
     ("--orbax", lambda a: a.orbax, "Queue 1 item 8 (async checkpoints)"),
     ("--pallas-ct", lambda a: a.pallas_ct is not None,
      "none: the port always runs its CT kernels on the card"),

@@ -43,6 +43,16 @@ plain version on the same card, f32 with TF32 off:
   and dbias within 1e-5 of each channel's Σ |masked| (f32 sums over up to
   5.8 million values in another order).
 
+The bfloat16 forwards (``ct_attention_cm_bf16``, ``ct_attention_bf16``,
+``ct_attention_variant_bf16``, ``ct_attention_serving_bf16``; the bf16 walk
+of ``csrc/ct_attention_bf16.cuh``): within one bf16 step of the largest
+output of their plain bf16 versions (``bf16_step``: the two sum in another
+f32 order and the output is rounded to bf16, so a value at a rounding
+boundary moves by a step), at the eval shapes and at the edges of the
+walk's tiles (P = 1, 63, 64, 65, 1001; K = 1, 31, 32, 33, 97; C = 1, 7, 15,
+16, 17, 60, 63), the same bits twice, one launch counted a call; and
+they refuse C = 64, mixed types and a call that needs a gradient.
+
 The device augmentation (``data/augment_device.py``), drawn on the card,
 applied on the card and on the CPU from the same parameters: images within
 2e-3 on the 0-255 scale, boxes within 1e-6, ``valid`` and labels equal;
@@ -64,6 +74,12 @@ import torch.nn.functional as F
 from ct_tpu_torch.config import resolve_task
 from ct_tpu_torch.models.rfbnet import build_net
 from ct_tpu_torch.ops.bias_relu import bias_relu_bwd, bias_relu_bwd_reference
+from ct_tpu_torch.ops.ct_attention import (
+    bf16_step, ct_attention_bf16, ct_attention_cm_bf16,
+    ct_attention_reference_bf16, ct_attention_reference_cm_bf16,
+    ct_attention_serving_bf16, ct_attention_serving_reference_bf16,
+    ct_attention_variant_bf16,
+)
 from ct_tpu_torch.ops.ct_attention import (
     ct_attention, ct_attention_bwd, ct_attention_bwd_reference,
     ct_attention_cm, ct_attention_cm_bwd, ct_attention_cm_bwd_flash,
@@ -657,3 +673,85 @@ def test_device_augment_on_the_card_matches_the_cpu(cuda, b, canvas,
         scale = 255.0 if key == "image" else 1.0
         assert (mixed[key].cpu().float() - val.float()).abs().max().item() \
             <= 1e-6 * scale, key
+
+
+# --- bfloat16 forwards --------------------------------------------------------
+
+BF16_SHAPES = [(8, 15, 11620, 1858), (8, 60, 11620, 1858), (1, 1, 1, 1),
+               (2, 7, 63, 31), (1, 15, 64, 32), (2, 16, 65, 33),
+               (1, 17, 1001, 97), (2, 60, 64, 1), (1, 63, 1001, 33)]
+
+
+def bf16_inputs(seed, b, c, p, k, device, scale=1.0):
+    """Class-major q and base, k, v in bf16 and wz in float32."""
+    q, kk, v, base, wz = inputs(seed, b, c, p, k, device)
+    return (*(t.mul(scale).to(torch.bfloat16) for t in (q, kk, v, base)),
+            wz)
+
+
+def bf16_case(path, args):
+    q, kk, v, base, wz = args
+    if path == "cm":
+        return (ct_attention_cm_bf16, (q, kk, v, base, wz),
+                ct_attention_reference_cm_bf16)
+    rm = (q.transpose(1, 2).contiguous(), kk, v,
+          base.transpose(1, 2).contiguous(), wz)
+    if path == "rowmajor":
+        return ct_attention_bf16, rm, ct_attention_reference_bf16
+    return (ct_attention_variant_bf16, rm,
+            lambda *a: ct_attention_reference_bf16(*a, exp_bf16=True))
+
+
+@pytest.mark.parametrize("b,c,p,k", BF16_SHAPES)
+@pytest.mark.parametrize("path", ["cm", "rowmajor", "variant"])
+def test_bf16_forwards_match_plain_versions(cuda, path, b, c, p, k):
+    args = bf16_inputs(c * p + k + 5, b, c, p, k, cuda, scale=0.5)
+    kernel, kargs, plain = bf16_case(path, args)
+    before = kernel.launches
+    with torch.no_grad():
+        first, second = kernel(*kargs), kernel(*kargs)
+        ref = plain(*kargs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert first.dtype == torch.bfloat16 and first.shape == ref.shape
+    assert torch.equal(first, second)
+    err = (first.float() - ref.float()).abs().max().item()
+    assert err <= bf16_step(ref.float().abs().max().item()), err
+
+
+BF16_SERVING_SHAPES = [(8, 15, 11620, 1858, 5), (8, 60, 11620, 1858, 20),
+                       (1, 7, 63, 1, 1), (2, 15, 64, 31, 64),
+                       (1, 17, 65, 33, 3), (2, 63, 1001, 97, 64)]
+
+
+@pytest.mark.parametrize("b,c,p,k,n", BF16_SERVING_SHAPES)
+def test_bf16_serving_matches_plain_version(cuda, b, c, p, k, n):
+    conf, kk, v, wt, bt, wz, obj = serving_inputs(c + p + n, b, c, p, k, n,
+                                                  cuda)
+    bf = lambda t: t.to(torch.bfloat16)
+    args = (bf(conf), bf(kk), bf(v), bf(wt), bt, wz, bf(obj))
+    before = ct_attention_serving_bf16.launches
+    first = ct_attention_serving_bf16(*args)
+    second = ct_attention_serving_bf16(*args)
+    ref = ct_attention_serving_reference_bf16(*args)
+    torch.cuda.synchronize()
+    assert ct_attention_serving_bf16.launches == before + 2
+    assert first.dtype == torch.bfloat16 and first.shape == (b, n, p)
+    assert torch.equal(first, second)
+    err = (first.float() - ref.float()).abs().max().item()
+    assert err <= bf16_step(ref.float().abs().max().item()), err
+    # the public wrapper takes bf16 conf to the same kernel
+    assert torch.equal(ct_attention_serving(*args), first)
+
+
+def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, kk, v, base, wz = bf16_inputs(1, 2, 64, 100, 40, cuda)
+    with pytest.raises(ValueError, match="63 classes"):
+        ct_attention_cm(q, kk, v, base, wz)
+    q, kk, v, base, wz = bf16_inputs(1, 2, 15, 100, 40, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ct_attention_cm(q, kk, v, base, wz.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="bfloat16"):
+        ct_attention_cm(q, kk.float(), v, base, wz)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ct_attention_cm(q.requires_grad_(), kk, v, base, wz)

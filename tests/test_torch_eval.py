@@ -12,7 +12,9 @@
   and per-class AP against the JAX package's ``voc_eval``.
 * Gated by ``CT_TPU_SLOW_TESTS``: the CLI over all 500 fixture images
   against the JAX package's recorded mAP (|ΔmAP| ≤ 0.003) and detections,
-  in f32 and on the int8 serving path (``--int8 --calib-images 8``); and
+  in f32, on the int8 serving path (``--int8 --calib-images 8``) and in the
+  JAX bench's full serving config (``--int8 --int8-heads --bf16
+  --approx-topk on --top-k 128 --pool-size 512``); and
   the int8 path quantized from the JAX package's own calibration, against
   the JAX package's int8 eval on the CPU.
 """
@@ -205,12 +207,25 @@ def test_eval_cli_on_a_small_voc_root(tmp_path, monkeypatch):
 
 
 # the JAX package's recorded evals of ref_model.pth on the 500 images
-# (docs/PARITY.md): f32, and the int8 backbone calibrated on 8 images
+# (docs/PARITY.md): f32, the int8 backbone calibrated on 8 images, and the
+# JAX bench's full serving config (int8 with the heads, bf16, approximate
+# top-k 128 in a pool of 512)
 VOC500 = {
     "f32": ([], "ours_eval", 0.74351, 0.61613),
     "int8": (["--int8", "--calib-images", "8"], "ours_eval_int8", 0.74366,
              0.61692),
+    "bf16_full": (["--int8", "--int8-heads", "--calib-images", "8", "--bf16",
+                   "--approx-topk", "on", "--top-k", "128", "--pool-size",
+                   "512"], "ours_eval_int8h_bf16_approx_pool", 0.73870,
+                  0.61636),
 }
+# the JAX package's own CPU run of the full config (the command is in
+# .parity_p2/ours_eval_int8h_bf16_approx_pool_cpu/inference/log.txt): the
+# port's CPU run misses the TPU record's novel mAP by 0.0052, as int8 did
+# (ROADMAP Queue 3 items 3 and 6), and is held to this record as well
+VOC500["bf16_full_cpu"] = (VOC500["bf16_full"][0],
+                           "ours_eval_int8h_bf16_approx_pool_cpu", 0.74040,
+                           0.62140)
 
 
 @pytest.mark.skipif(not os.environ.get("CT_TPU_SLOW_TESTS"),

@@ -265,7 +265,8 @@ def test_checkpointer_skips_mismatched_shapes_and_prefixes_basenet(
 
 
 # each flag the port refuses, with the ROADMAP item its message names
-REFUSED = {"--bf16": "Queue 1 item 4", "--orbax": "Queue 1 item 8",
+REFUSED = {"--bf16": "Queue 1 item 4 \\(bf16 training, the next slice",
+           "--orbax": "Queue 1 item 8",
            "--pallas-ct": "the port always runs its CT kernels",
            "--fused-opt": "Queue 1 item 4", "--accum-steps": "Queue 1 item 4",
            "--ndev": "Queue 1 item 8", "--worker-type": "Queue 1 item 5",
