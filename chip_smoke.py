@@ -69,6 +69,18 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            tensor-core rate and the B·P·K exponentials on the
            special-function units (16 a clock on each SM, at the card's
            maximum SM clock from nvidia-smi).
+           bf16 training: ``ct_attention_cm_stats_bf16`` and
+           ``ct_attention_cm_bwd_flash_bf16`` (rows 2 and 3),
+           ``ct_attention_cm_bwd_bf16`` (row 4, also through autograd,
+           the same bits), ``ct_attention_bwd_bf16`` (row 5's backward, on
+           the bwd bench's inputs) and ``pool2x2_relu`` on bf16 (row 7, bit
+           for bit), at B=8 with C=15 and 60 and ragged, timed at the train
+           step's batch (the bench's for row 5) beside the bf16 SDPA
+           forward and backward and ``relu(max_pool2d)``, with their bounds
+           and the backwards split by kernel; each output within
+           BF16_SUM_MEAN_TOL in the mean and one bf16 step (the forward's
+           out and delta) or BF16_SUM_MAX_TOL (the backward's sums) in the
+           max.
 4. model   the phase-2 incre split-1 RFBNet300 with ``ref_model.pth`` on
            the card: 1 warm-up and 3 timed eval steps on 8 seeded images
            (images/s from the median step), the kernels' launch counts
@@ -113,7 +125,17 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
 6. transfer phase-2 transfer (C=60) from seeded weights: 1 warm-up and 3
            timed steps at batch 64 with each backward (images/s, peak
            memory, launches, finite losses).
-7. train_cli phase-2 training through the train CLI on the VOC fixture
+7. train_bf16 ``train.py --bf16`` on the card: the same model in bf16
+           (float32 parameters, bf16 convs, BN outputs, CT projections and
+           the bf16 kernels of rows 2, 3, 4 and 7), ``init_reweight`` over
+           2 batches, 1 warm-up and 3 timed steps at batch 64 with the flash
+           backward (images/s, the bf16 kernels' launches and none of the
+           f32 ones, a profile), card vs CPU at batch 2 by the bf16 effect
+           (BF16_F32_SPAN, BF16_CARD_CPU_SPAN, with a reading of the plain
+           bf16 CT versions on the card), blockwise vs flash by the bf16
+           effect and 1 + 3 blockwise steps; then transfer (C=60) from
+           seeded weights in bf16, flash and blockwise.
+8. train_cli phase-2 training through the train CLI on the VOC fixture
            (``.parity_p2/voc``, real JPEGs), as ``train.py`` trains: first
            the device augmentation and mixup on the card against the same
            apply functions on the CPU with the same parameters, at batch
@@ -128,15 +150,19 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            ``model_final.pth`` on the 500 test images (mAP above 0.5, a
            sanity floor, with the eval kernels' launches); then
            ``scripts/bench_pipeline.py``'s three rates at a few
-           iterations. The CLIs' output goes to
+           iterations; then the augmentation with bf16 images on the card
+           against the CPU and the train CLI with ``--bf16
+           --device-augment --mixup`` for 8 iterations (the bf16 kernels'
+           launches, finite losses, a metrics row). The CLIs' output goes to
            build/chip_smoke/train_cli_*.txt and bench_pipeline.txt.
-8. bench   the port's kernel benches (``ct_tpu_torch/scripts``): the
+9. bench   the port's kernel benches (``ct_tpu_torch/scripts``): the
            attention forward bench at B=128 on bf16 inputs (as the JAX
-           bench's) and on the same values in float32, the backward bench at 300
-           (B=64) and 512 (B=16), the bias+ReLU backward bench, few
+           bench's) and on the same values in float32, the backward bench
+           at 300 (B=64) and 512 (B=16), each on bf16 inputs (as the JAX
+           bench's) and in float32, the bias+ReLU backward bench, few
            iterations each, with the launches of their kernels; their
            lines go to build/chip_smoke/bench_*.txt.
-9. kernels one line listing every kernel of the port with its launches
+10. kernels one line listing every kernel of the port with its launches
            on its path's phase, error and times.
 
 Any failure raises and exits non-zero with no "ok" line. The last line is
@@ -194,6 +220,60 @@ MATCH_SCORE = 1e-4
 # and at 0.95, every matched score within 0.0039). The shares at 0.999,
 # 0.99 and 0.95 are recorded beside it.
 BF16_MATCH_SHARE = 0.95
+# the bf16 training kernels against their plain versions. The kernel's f32
+# scores (and sums) run in another order, so a weight or a ds that lies at
+# a bf16 rounding boundary rounds the other way and moves one term of a sum
+# by a bf16 step of itself: where the softmax is peaked (C=60, unit
+# inputs) one term can be as large as the sum, and such a flip moves an
+# entry by up to 2e-3 of the largest (PERF.md §2), but the flips are few,
+# so the mean moves by a few 1e-6 of the mean |entry|; a wrong rounding
+# point (g·wz, ds or attn rounded where JAX does not, or not where it
+# does) moves every entry, the mean by 1.4e-3 to 5e-3 of the mean |entry|
+# (tests/test_torch_bf16_train.py,
+# test_bf16_bands_separate_flips_from_wrong_rounding: 3.5e-6 against
+# 1.4e-3 at the least, K=1,858, C=60). So each output is held in the mean to BF16_SUM_MEAN_TOL of its mean
+# |entry|, and in the max to one bf16 step of its largest entry (the
+# forward's bf16 out and delta, sums of weights at most 1 over z ≥ 1) or
+# BF16_SUM_MAX_TOL of it (the sums over keys or anchors: dq, bf16 or row
+# 5's float32, whose rounding to bf16 is at most 2^-7 of it, and the f32
+# sums dk and dv before their cast and dwz; dq's flips reached 4.2e-3 of
+# its largest entry on the card at C=60).
+BF16_SUM_MEAN_TOL = 1e-4
+BF16_SUM_MAX_TOL = 1e-2
+# bf16 training, the blockwise backward against the flash one on the card:
+# the band of the bf16 eval checks, half of what bf16 moves the result
+# (tests/test_torch_bf16.py), here of the
+# gradient taken as one vector (the update the optimizer applies), from the
+# same state on the same anchors, whole and the CT head's alone; each
+# tensor within its own bf16 effect or 1% of the whole vector's (the
+# gradients that vanish in exact arithmetic, φ's bias and the biases of BNs
+# that feed BNs, are rounding noise on both sides, as in f32). Measured at
+# size 64 on the CPU (tests/test_torch_bf16_train.py): the port against
+# JAX 0.25 of the effect for the whole vector and 0.6 of a tensor's band
+# at the most; on the card flash against blockwise 0.16 for the CT
+# head's vector.
+BF16_EFFECT_SHARE = 0.5
+BF16_TENSOR_SHARE = 1.0
+BF16_TENSOR_FLOOR = 1e-2
+# bf16 training, the card against the CPU at 300 (batch 2): two bf16
+# computations whose convolutions sum in other orders part, through the
+# trunk, by nearly the whole bf16 effect at full width (the bf16 eval
+# found most loc outputs a bf16 step apart; measured here 0.94 of the effect
+# for the gradient vector, and the same with the plain CT versions on the
+# card, a reading beside it). So the card is held to what bf16 alone
+# allows: its bf16 gradient within BF16_F32_SPAN of the f32 one's distance
+# to the CPU's bf16 one (measured 1.01: as far from f32 as the CPU's bf16
+# result, and not f32), and within twice the effect of the CPU's bf16 one
+# (two results each within the effect of the f32 one); the same for the
+# CT head's vector; each loss within twice its effect or TRAIN_LOSS_RTOL.
+BF16_F32_SPAN = (0.5, 1.5)
+BF16_CARD_CPU_SPAN = 2.0
+# the bf16 training forward's m (the row max of f32 scores) relative to the
+# largest, and z, the sum of the bf16-rounded weights (each at most 1): a
+# weight that rounds the other way moves z by one bf16 step of itself,
+# at most 2^-8; 2^-5 holds eight such
+BF16_M_TOL = 1e-5
+BF16_Z_TOL = 2.0 ** -5
 BF16_MATCH_IOU = 0.98
 BF16_MATCH_SCORE = 2.0 ** -8
 # the JAX package's records of its bench's full serving config on the 500
@@ -250,6 +330,10 @@ BENCH_FWD_BATCH, BENCH_BWD_BATCH = 128, 64
 # the 0-255 scale, after a resample whose f32 sums run in another order;
 # boxes; mixup relative to 255)
 AUGMENT_IMG_TOL = 2e-3
+# with bf16 images: the share of pixels that may round a step the other
+# way (an f32 difference of 2e-3 against bf16 steps of 1/8 to 1 on the
+# 0-255 scale: about 2e-3/0.25 of them at most)
+AUGMENT_BF16_SHARE = 1e-2
 AUGMENT_BOX_TOL = 1e-6
 MIXUP_TOL = 1e-6
 VOC_ROOT = os.path.join(".parity_p2", "voc", "VOCdevkit")
@@ -257,6 +341,9 @@ VOC_ROOT = os.path.join(".parity_p2", "voc", "VOCdevkit")
 # eval must score above this (a sanity floor, not a parity gate)
 TRAIN_CLI_ITERS = 26
 TRAIN_CLI_MAP_FLOOR = 0.5
+# the bf16 train CLI run: its first write point comes after 5 iterations,
+# then at the last
+TRAIN_CLI_BF16_ITERS = 8
 
 
 def emit(obj) -> None:
@@ -1184,6 +1271,278 @@ def bf16_rowmajor_case(rng, b, c, p, kk, time_batch: int = 0) -> dict:
     return res
 
 
+def bf16_sum_check(name, outs, plains, names, deterministic, **info):
+    """bf16 training kernels against their plain versions: each output's
+    mean |Δ| within BF16_SUM_MEAN_TOL of its mean |entry|, and its max |Δ|
+    within one bf16 step of its largest entry (out, delta) or
+    BF16_SUM_MAX_TOL of it (dq, dk, dv, dwz); the same bits on a second
+    launch."""
+    from ct_tpu_torch.ops.ct_attention import bf16_step
+
+    res = {**info, "deterministic": deterministic,
+           "mean_tol": BF16_SUM_MEAN_TOL, "max_tol": BF16_SUM_MAX_TOL}
+    ok = deterministic
+    for n, a, r in zip(names, outs, plains):
+        a, r = a.float(), r.float()
+        d = (a - r).abs()
+        scale = r.abs().max().item()
+        tol = (bf16_step(scale) if n in ("out", "delta")
+               else BF16_SUM_MAX_TOL * scale)
+        mean_rel = d.mean().item() / max(r.abs().mean().item(), 1e-30)
+        res[n] = {"max_abs_err": d.max().item(), "tol": tol,
+                  "max_abs": scale, "mean_rel_err": mean_rel,
+                  "differing_share": (a != r).float().mean().item()}
+        ok = ok and res[n]["max_abs_err"] <= tol and (
+            mean_rel <= BF16_SUM_MEAN_TOL)
+    res["max_abs_err"] = max(res[n]["max_abs_err"] for n in names)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{res}")
+    return res
+
+
+def bf16_training_case(rng, b, c, p, kk, time_it: bool) -> dict:
+    """Rows 2 and 3 in bf16 (the ``--bf16`` train step's flash path):
+    ``ct_attention_cm_stats_bf16`` and ``ct_attention_cm_bwd_flash_bf16``
+    against their plain bf16 versions on the same inputs (the backward from
+    the kernel's own m, z and delta); timed beside the bf16 SDPA forward
+    and backward with their bounds (``bf16_bound``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_cm_bwd_flash_bf16,
+        ct_attention_cm_bwd_flash_reference_bf16, ct_attention_cm_stats_bf16,
+        ct_attention_cm_stats_reference_bf16,
+    )
+
+    bf = torch.bfloat16
+    t = lambda *shape, scale=1.0: device_normal(rng, shape, scale).to(bf)
+    q, base, g = t(b, c, p), t(b, c, p), t(b, c, p)
+    k, v = t(b, kk, c), t(b, kk, c)
+    wz = device_normal(rng, (c,), 0.1)
+    fwd = (q, k, v, base, wz)
+    with torch.no_grad():
+        out, delta, m, z = ct_attention_cm_stats_bf16(*fwd)
+        ref = ct_attention_cm_stats_reference_bf16(*fwd)
+        stats = bf16_sum_check(
+            "ct_attention_cm_stats_bf16", (out, delta), ref[:2],
+            ("out", "delta"),
+            same_bits(lambda: ct_attention_cm_stats_bf16(*fwd)),
+            B=b, C=c, P=p, K=kk)
+        stats["m_rel_err"] = ((m - ref[2]).abs().max().item()
+                              / ref[2].abs().max().item())
+        stats["z_max_abs_err"] = (z - ref[3]).abs().max().item()
+        del ref
+        if not (stats["m_rel_err"] <= BF16_M_TOL
+                and stats["z_max_abs_err"] <= BF16_Z_TOL):
+            raise AssertionError(f"ct_attention_cm_stats_bf16's m or z: "
+                                 f"{stats}")
+        gd = g.float() * delta.float()
+        colsum = (gd * wz[None, :, None]).sum(dim=1, keepdim=True)
+        bwd_args = (q, k, v, wz, g, m, z, colsum)
+        bwd = bf16_sum_check(
+            "ct_attention_cm_bwd_flash_bf16",
+            ct_attention_cm_bwd_flash_bf16(*bwd_args),
+            ct_attention_cm_bwd_flash_reference_bf16(*bwd_args),
+            ("dq", "dk", "dv"),
+            same_bits(lambda: ct_attention_cm_bwd_flash_bf16(*bwd_args)),
+            B=b, C=c, P=p, K=kk)
+    torch.cuda.synchronize()
+    res = {"stats": stats, "bwd": bwd}
+    if not time_it:
+        return res
+    torch.cuda.empty_cache()
+    q_rm = q.transpose(1, 2).contiguous()[:, None]
+    with torch.no_grad():
+        stats.update(
+            ms=cuda_ms(lambda: ct_attention_cm_stats_bf16(*fwd), 10),
+            plain_ms=cuda_ms(lambda: ct_attention_cm_stats_reference_bf16(
+                *fwd), 3, warmup=1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q_rm, k[:, None], v[:, None], scale=1.0), 10),
+            **bf16_bound(4 * b * p * kk * c, b * p * kk,
+                         2 * (4 * b * c * p + 2 * b * kk * c)
+                         + 4 * (2 * b * p + c)))
+        torch.cuda.empty_cache()
+        bwd.update(
+            ms=cuda_ms(lambda: ct_attention_cm_bwd_flash_bf16(*bwd_args), 5),
+            plain_ms=cuda_ms(
+                lambda: ct_attention_cm_bwd_flash_reference_bf16(*bwd_args),
+                2, warmup=1),
+            **bf16_bound(10 * b * p * kk * c, b * p * kk,
+                         2 * (3 * b * c * p + 2 * b * kk * c)
+                         + 4 * (2 * b * kk * c + 3 * b * p + c)))
+        bwd["kernels_ms"] = kernel_split_ms(
+            lambda: ct_attention_cm_bwd_flash_bf16(*bwd_args),
+            BF16_BWD_KERNELS[:2] + BF16_BWD_KERNELS[4:])
+    torch.cuda.empty_cache()
+    bwd["library_ms"] = sdpa_backward_ms(
+        q.transpose(1, 2), k, v,
+        (g.float() * wz[None, :, None]).to(bf).transpose(1, 2), 5)
+    return res
+
+
+# the bf16 backwards' kernels, by the names the profiler gives them: the
+# padding of k and v, the padded layout of q and g·wz, the blockwise stats
+# pass and its dwz reduction, dq, dk/dv
+BF16_BWD_KERNELS = ("pad_kv", "prep_kernel", "stats_kernel",
+                    "dwz_reduce_kernel", "dq_kernel", "dkdv_kernel")
+
+
+def bf16_blockwise_case(rng, b, c, p, kk, time_it: bool) -> dict:
+    """Row 4 in bf16 (``CT_ATTENTION_FLASH=0`` under ``--bf16``):
+    ``ct_attention_cm_bwd_bf16`` against its plain bf16 version, and the
+    autograd of ``ct_attention_cm(flash=False)`` on bf16 against the
+    kernels it must run (the eval forward, this backward, dk and dv cast
+    to bf16): the same bits. Timed beside the bf16 SDPA backward."""
+    import torch
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_cm, ct_attention_cm_bf16, ct_attention_cm_bwd_bf16,
+        ct_attention_cm_bwd_reference_bf16,
+    )
+
+    bf = torch.bfloat16
+    t = lambda *shape: device_normal(rng, shape).to(bf)
+    q, base, g = t(b, c, p), t(b, c, p), t(b, c, p)
+    k, v = t(b, kk, c), t(b, kk, c)
+    wz = device_normal(rng, (c,), 0.1)
+    args = (q, k, v, wz, g)
+    with torch.no_grad():
+        grads = ct_attention_cm_bwd_bf16(*args)
+        res = bf16_sum_check(
+            "ct_attention_cm_bwd_bf16", grads,
+            ct_attention_cm_bwd_reference_bf16(*args),
+            ("dq", "dk", "dv", "dwz"),
+            same_bits(lambda: ct_attention_cm_bwd_bf16(*args)),
+            B=b, C=c, P=p, K=kk)
+        out = ct_attention_cm_bf16(q, k, v, base, wz)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, base, wz)]
+    y = ct_attention_cm(*leaves, flash=False)
+    auto = torch.autograd.grad(y, leaves, g)
+    want = (grads[0], grads[1].to(bf), grads[2].to(bf), g, grads[3])
+    res["autograd_same_bits"] = bool(
+        torch.equal(y, out)
+        and all(torch.equal(a, w) for a, w in zip(auto, want)))
+    del leaves, y, auto, want
+    if not res["autograd_same_bits"]:
+        raise AssertionError("the bf16 blockwise autograd does not run its "
+                             "kernels")
+    if time_it:
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            res.update(
+                ms=cuda_ms(lambda: ct_attention_cm_bwd_bf16(*args), 5),
+                plain_ms=cuda_ms(lambda: ct_attention_cm_bwd_reference_bf16(
+                    *args), 2, warmup=1),
+                **bf16_bound(12 * b * p * kk * c, b * p * kk,
+                             2 * (3 * b * c * p + 2 * b * kk * c)
+                             + 4 * (2 * b * kk * c + 2 * c)))
+            res["kernels_ms"] = kernel_split_ms(
+                lambda: ct_attention_cm_bwd_bf16(*args), BF16_BWD_KERNELS)
+        torch.cuda.empty_cache()
+        res["library_ms"] = sdpa_backward_ms(
+            q.transpose(1, 2), k, v,
+            (g.float() * wz[None, :, None]).to(bf).transpose(1, 2), 5)
+    return res
+
+
+def bf16_rowmajor_bwd_case(rng, b, c, p, kk, time_it: bool) -> dict:
+    """Row 5's backward in bf16 (``ct_attention_bwd_bf16``, the JAX bwd
+    bench's row-major kernel on its bf16 inputs, normal × 0.3) against its
+    plain bf16 version; dq, dk, dv and dwz all float32 as that bench's
+    wrapper emits them."""
+    import torch
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_bwd_bf16, ct_attention_bwd_reference_bf16,
+    )
+
+    t = lambda *shape: device_normal(rng, shape, 0.3).to(torch.bfloat16)
+    args = (t(b, p, c), t(b, kk, c), t(b, kk, c), device_normal(rng, (c,)),
+            t(b, p, c))
+    with torch.no_grad():
+        res = bf16_sum_check(
+            "ct_attention_bwd_bf16", ct_attention_bwd_bf16(*args),
+            ct_attention_bwd_reference_bf16(*args),
+            ("dq", "dk", "dv", "dwz"),
+            same_bits(lambda: ct_attention_bwd_bf16(*args)),
+            B=b, C=c, P=p, K=kk)
+        if time_it:
+            torch.cuda.empty_cache()
+            q, k, v, wz, g = args
+            res.update(
+                ms=cuda_ms(lambda: ct_attention_bwd_bf16(*args), 5),
+                plain_ms=cuda_ms(lambda: ct_attention_bwd_reference_bf16(
+                    *args), 2, warmup=1),
+                **bf16_bound(12 * b * p * kk * c, b * p * kk,
+                             2 * (2 * b * c * p + 2 * b * kk * c)
+                             + 4 * (b * c * p + 2 * b * kk * c + 2 * c)))
+    if time_it:
+        torch.cuda.empty_cache()
+        res["library_ms"] = sdpa_backward_ms(
+            q, k, v, (g.float() * wz).to(torch.bfloat16), 5)
+    return res
+
+
+def bf16_pool_case(rng, shape, time_it: bool) -> dict:
+    """Row 7 in bf16: ``pool2x2_relu`` forward and backward on bf16 against
+    torch autograd of ``F.relu`` then ``F.max_pool2d`` on the same bf16
+    tensors, bit for bit, on tie-heavy inputs; timed beside that library
+    composition, its bound half the f32 kernel's bytes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ct_tpu_torch.ops.pool_relu import (
+        pool2x2_relu_bwd, pool2x2_relu_bwd_bf16, pool2x2_relu_bwd_reference,
+        pool2x2_relu_fwd, pool2x2_relu_fwd_bf16, pool2x2_relu_reference,
+    )
+
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    x = torch.from_numpy((np.round(rng.standard_normal(shape) * 2) / 2)
+                         .astype(np.float32)).to(dev, bf)
+    y = pool2x2_relu_fwd(x)
+    g = device_normal(rng, tuple(y.shape)).to(bf)
+    dx = pool2x2_relu_bwd(x, y, g)
+    xr = x.clone().requires_grad_()
+    yr = F.max_pool2d(F.relu(xr), 2, 2)
+    yr.backward(g)
+    torch.cuda.synchronize()
+    res = {"shape": list(shape), "dtype": "bfloat16",
+           "fwd_bitexact": bool(torch.equal(y, yr.detach())),
+           "bwd_bitexact": bool(torch.equal(dx, xr.grad)),
+           "fwd_max_abs_err": (y.float() - yr.detach().float()).abs()
+           .max().item(),
+           "bwd_max_abs_err": (dx.float() - xr.grad.float()).abs()
+           .max().item(),
+           "bwd_routed": int((dx != 0).sum().item())}
+    if not (res["fwd_bitexact"] and res["bwd_bitexact"] and y.dtype == bf
+            and dx.dtype == bf):
+        raise AssertionError(f"pool2x2_relu on bf16 disagrees with torch "
+                             f"autograd: {res}")
+    if not time_it:
+        return res
+    del xr, yr
+    n = x.numel()
+    xl = x.clone().requires_grad_()
+    yl = torch.relu(F.max_pool2d(xl, 2, 2))
+    res["fwd"] = dict(
+        ms=cuda_ms(lambda: pool2x2_relu_fwd_bf16(x), 10),
+        plain_ms=cuda_ms(lambda: pool2x2_relu_reference(x), 10),
+        library_ms=cuda_ms(lambda: torch.relu(F.max_pool2d(x, 2, 2)), 10),
+        **bound(n, 2 * (n + n // 4)))
+    res["bwd"] = dict(
+        ms=cuda_ms(lambda: pool2x2_relu_bwd_bf16(x, y, g), 10),
+        plain_ms=cuda_ms(lambda: pool2x2_relu_bwd_reference(x, y, g), 5),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            yl, xl, g, retain_graph=True), 10),
+        **bound(2 * n, 2 * (2 * n + 2 * (n // 4))))
+    return res
+
+
 def phase_kernel(seed: int) -> dict:
     import numpy as np
     import torch
@@ -1271,6 +1630,43 @@ def phase_kernel(seed: int) -> dict:
         "bf16_rowmajor": bf16_rowmajor_case(rng, 8, 60, 11620, 1858,
                                             BENCH_FWD_BATCH),
         "bf16_rowmajor_ragged": bf16_rowmajor_case(rng, 3, 15, 1001, 97),
+        # bf16 training (``train.py --bf16``): rows 2 and 3 (the flash
+        # path), row 4 (the blockwise backward), row 5's backward on the
+        # bwd bench's inputs and row 7, checked at batch 8 and ragged,
+        # timed at the train step's batch (the bench's for row 5)
+        "bf16_train_incre": bf16_training_case(rng, 8, 15, 11620, 1858,
+                                               False),
+        "bf16_train_transfer": bf16_training_case(rng, 8, 60, 11620, 1858,
+                                                  False),
+        "bf16_train_ragged": bf16_training_case(rng, 3, 60, 1001, 97, False),
+        "bf16_train_ragged_narrow": bf16_training_case(rng, 2, 7, 130, 65,
+                                                       False),
+        "bf16_train_timed": bf16_training_case(rng, TRAIN_BATCH, 15, 11620,
+                                               1858, True),
+        "bf16_train_timed_transfer": bf16_training_case(
+            rng, TRAIN_BATCH, 60, 11620, 1858, True),
+        "bf16_blockwise_incre": bf16_blockwise_case(rng, 8, 15, 11620, 1858,
+                                                    False),
+        "bf16_blockwise_transfer": bf16_blockwise_case(rng, 8, 60, 11620,
+                                                       1858, False),
+        "bf16_blockwise_ragged": bf16_blockwise_case(rng, 3, 60, 1001, 97,
+                                                     False),
+        "bf16_blockwise_ragged_narrow": bf16_blockwise_case(rng, 2, 7, 130,
+                                                            65, False),
+        "bf16_blockwise_timed": bf16_blockwise_case(rng, TRAIN_BATCH, 15,
+                                                    11620, 1858, True),
+        "bf16_blockwise_timed_transfer": bf16_blockwise_case(
+            rng, TRAIN_BATCH, 60, 11620, 1858, True),
+        "bf16_rowmajor_bwd": bf16_rowmajor_bwd_case(rng, 8, 60, 11620, 1858,
+                                                    False),
+        "bf16_rowmajor_bwd_ragged": bf16_rowmajor_bwd_case(rng, 3, 15, 1001,
+                                                           97, False),
+        "bf16_rowmajor_bwd_timed": bf16_rowmajor_bwd_case(
+            rng, BENCH_BWD_BATCH, 60, 11620, 1858, True),
+        "bf16_pool": bf16_pool_case(rng, (8, 64, 300, 300), False),
+        "bf16_pool_ragged": bf16_pool_case(rng, (3, 5, 6, 10), False),
+        "bf16_pool_timed": bf16_pool_case(rng, (TRAIN_BATCH, 64, 300, 300),
+                                          True),
     }
     torch.cuda.empty_cache()
     return res
@@ -1631,26 +2027,43 @@ def seeded_targets(seed: int, n: int, max_objs: int = 4) -> dict:
 
 
 def training_counts() -> dict:
-    """The kernels a train step may launch, by name."""
+    """The kernels a train step may launch, by name: float32, and the
+    bf16 ones of the ``--bf16`` model."""
     from ct_tpu_torch.ops.ct_attention import (
-        ct_attention_cm, ct_attention_cm_bwd, ct_attention_cm_bwd_flash,
-        ct_attention_cm_stats,
+        ct_attention_cm, ct_attention_cm_bf16, ct_attention_cm_bwd,
+        ct_attention_cm_bwd_bf16, ct_attention_cm_bwd_flash,
+        ct_attention_cm_bwd_flash_bf16, ct_attention_cm_stats,
+        ct_attention_cm_stats_bf16,
     )
-    from ct_tpu_torch.ops.pool_relu import pool2x2_relu_bwd, pool2x2_relu_fwd
+    from ct_tpu_torch.ops.pool_relu import (
+        pool2x2_relu_bwd, pool2x2_relu_bwd_bf16, pool2x2_relu_fwd,
+        pool2x2_relu_fwd_bf16,
+    )
 
-    return {"ct_attention_cm": ct_attention_cm,
-            "ct_attention_cm_stats": ct_attention_cm_stats,
-            "ct_attention_cm_bwd_flash": ct_attention_cm_bwd_flash,
-            "ct_attention_cm_bwd": ct_attention_cm_bwd,
-            "pool2x2_relu_fwd": pool2x2_relu_fwd,
-            "pool2x2_relu_bwd": pool2x2_relu_bwd}
+    return {fn.__name__: fn for fn in (
+        ct_attention_cm, ct_attention_cm_stats, ct_attention_cm_bwd_flash,
+        ct_attention_cm_bwd, pool2x2_relu_fwd, pool2x2_relu_bwd,
+        ct_attention_cm_bf16, ct_attention_cm_stats_bf16,
+        ct_attention_cm_bwd_flash_bf16, ct_attention_cm_bwd_bf16,
+        pool2x2_relu_fwd_bf16, pool2x2_relu_bwd_bf16)}
+
+
+def step_kernels(flash: bool, bf16: bool = False) -> tuple:
+    """The kernels one train step launches once each: the CT attention's
+    forward and backward (flash or blockwise) and conv1's pool, in the
+    model's type."""
+    used = (("ct_attention_cm_stats", "ct_attention_cm_bwd_flash") if flash
+            else ("ct_attention_cm", "ct_attention_cm_bwd"))
+    used += ("pool2x2_relu_fwd", "pool2x2_relu_bwd")
+    return tuple(n + "_bf16" for n in used) if bf16 else used
 
 
 def train_steps(step, train_state, batch, flash: bool, steps: int) -> dict:
     """1 warm-up and ``steps`` timed train steps on the card with the CT
     attention's flash or blockwise backward: images/s from the median
     step, finite losses, peak memory, and the launches of the training
-    kernels over them, which must be those of the chosen backward."""
+    kernels over them, which must be those of the chosen backward in the
+    model's type."""
     import torch
 
     train_state.model.ct_flash = flash
@@ -1666,10 +2079,8 @@ def train_steps(step, train_state, batch, flash: bool, steps: int) -> dict:
         losses.append({k: float(v) for k, v in out.items()})
         times.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, fn in counts.items()}
-    used = (("ct_attention_cm_stats", "ct_attention_cm_bwd_flash") if flash
-            else ("ct_attention_cm", "ct_attention_cm_bwd"))
-    expected = {name: (1 + steps if name in used or name.startswith("pool")
-                       else 0) for name in counts}
+    used = step_kernels(flash, train_state.model.dtype == torch.bfloat16)
+    expected = {name: 1 + steps if name in used else 0 for name in counts}
     if launches != expected:
         raise AssertionError(f"launches over {1 + steps} train steps: "
                              f"{launches}, expected {expected}")
@@ -1678,6 +2089,7 @@ def train_steps(step, train_state, batch, flash: bool, steps: int) -> dict:
     median_s = sorted(times[1:])[steps // 2]
     n = batch["image"].shape[0]
     return {"backward": "flash" if flash else "blockwise", "batch": n,
+            "dtype": str(train_state.model.dtype).replace("torch.", ""),
             "warmup_s": times[0], "step_s": times[1:],
             "images_per_s": n / median_s, "launches": launches,
             "losses": losses,
@@ -1804,6 +2216,250 @@ def phase_transfer(seed: int) -> dict:
     return res
 
 
+def grads_of(net) -> dict:
+    return {n: p.grad.detach().float().cpu().clone()
+            for n, p in net.named_parameters()}
+
+
+def bf16_effect_check(label, grads, ref16, ref32, names=None) -> dict:
+    """bf16 gradients ``grads`` against ``ref16`` (the same function in
+    bf16 elsewhere) by the bf16 effect ‖ref16 − ref32‖ (ref32 the float32
+    gradients from the same state and anchors), each taken as one vector
+    (the update the optimizer applies; ``bf16_span``): ‖grads − ref16‖
+    within BF16_EFFECT_SHARE of it; each tensor within BF16_TENSOR_SHARE of
+    its own effect or BF16_TENSOR_FLOOR of the whole vector's. ``names``
+    restricts it to those parameters."""
+    res = bf16_span(grads, ref16, ref32, names)
+    effect = res["effect_norm"]
+    rows = []
+    for n in ref32:
+        if names is not None and not n.startswith(names):
+            continue
+        eff = (ref16[n] - ref32[n]).norm().item()
+        d = (grads[n] - ref16[n]).norm().item()
+        band = max(BF16_TENSOR_SHARE * eff, BF16_TENSOR_FLOOR * effect)
+        rows.append((d / band, n, d, eff))
+    rows.sort(reverse=True)
+    res.update(worst_tensors=[(n, r, d, e) for r, n, d, e in rows[:6]],
+               share=BF16_EFFECT_SHARE, tensor_share=BF16_TENSOR_SHARE,
+               tensor_floor=BF16_TENSOR_FLOOR)
+    res["ok"] = bool(res["to_bf16_over_effect"] <= BF16_EFFECT_SHARE
+                     and rows[0][0] <= 1.0)
+    if not res["ok"]:
+        raise AssertionError(f"{label}: bf16 gradients beyond their band: "
+                             f"{res}")
+    return res
+
+
+def grad_distance(a, b, names=None) -> float:
+    """‖a − b‖ over the parameters (or those of ``names``) as one vector."""
+    import torch
+
+    keys = [n for n in b if names is None or n.startswith(names)]
+    return torch.cat([(a[n] - b[n]).reshape(-1) for n in keys]).norm().item()
+
+
+def bf16_span(grads, ref16, ref32, names=None) -> dict:
+    """The distances of ``grads`` to ``ref16`` and to ``ref32``, each
+    parameter vector (or those of ``names``) taken as one, over the bf16
+    effect ‖ref16 − ref32‖."""
+    effect = grad_distance(ref16, ref32, names)
+    return {"effect_norm": effect,
+            "to_bf16_over_effect": grad_distance(grads, ref16, names) / effect,
+            "to_f32_over_effect": grad_distance(grads, ref32, names) / effect}
+
+
+def bf16_card_vs_cpu_train(task, net, batch, priors) -> dict:
+    """The bf16 model's loss and gradients at batch 2 on the card against
+    the same bf16 model on the CPU, on the anchors the CPU mined, by what
+    bf16 moves the CPU's result (its float32 model on the same anchors):
+    the bands of BF16_F32_SPAN and BF16_CARD_CPU_SPAN for the whole
+    gradient and the CT head's; each loss within BF16_CARD_CPU_SPAN of its
+    effect or TRAIN_LOSS_RTOL of L. A reading beside it: the same on the
+    card with the CT attention's plain bf16 versions in place of its
+    kernels."""
+    import torch
+
+    from ct_tpu_torch.config import VOC_300
+    from ct_tpu_torch.models.rfbnet import build_net
+    from ct_tpu_torch.ops import ct_attention as cta
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.train.step import LOSS_KEYS, loss_and_grads
+
+    state = {k: v.cpu() for k, v in net.state_dict().items()}
+    mini = {k: v[:2].cpu() for k, v in batch.items()}
+    cpu_priors = prior_boxes(VOC_300, "cpu")
+    out = {}
+    mask = None
+    for key, dt in (("cpu16", torch.bfloat16), ("cpu32", torch.float32)):
+        cpu_net = build_net(task, 300, device="cpu", dtype=dt)
+        cpu_net.load_state_dict(state)
+        losses, m = loss_and_grads(cpu_net, mini, cpu_priors, mask=mask)
+        mask = m if mask is None else mask
+        out[key] = ({k: losses[k].item() for k in LOSS_KEYS},
+                    grads_of(cpu_net))
+        del cpu_net
+    mini_card = {k: v.to(priors.device) for k, v in mini.items()}
+    card_losses, _ = loss_and_grads(net, mini_card, priors,
+                                    mask=mask.to(priors.device))
+    card_losses = {k: card_losses[k].item() for k in LOSS_KEYS}
+    card = grads_of(net)
+    # the reading: the plain bf16 CT versions on the card's tensors
+    device_of = cta._device
+    cta._device = lambda name, t: "cpu"
+    try:
+        loss_and_grads(net, mini_card, priors, mask=mask.to(priors.device))
+    finally:
+        cta._device = device_of
+    plain_ct = grads_of(net)
+    ref16, ref32 = out["cpu16"][1], out["cpu32"][1]
+    loss_rows = {k: (abs(card_losses[k] - out["cpu16"][0][k]),
+                     max(BF16_CARD_CPU_SPAN * abs(out["cpu16"][0][k]
+                                                  - out["cpu32"][0][k]),
+                         TRAIN_LOSS_RTOL * abs(out["cpu16"][0][k])))
+                 for k in LOSS_KEYS}
+    res = {"batch": 2, "anchors_counted": int(mask.sum().item()),
+           "losses": {"card16": card_losses, "cpu16": out["cpu16"][0],
+                      "cpu32": out["cpu32"][0]},
+           "loss_err_and_band": loss_rows,
+           "all": bf16_span(card, ref16, ref32),
+           "ct": bf16_span(card, ref16, ref32, CT_PARAMS),
+           "plain_ct_reading": {
+               "all": bf16_span(plain_ct, ref16, ref32),
+               "ct": bf16_span(plain_ct, ref16, ref32, CT_PARAMS),
+               # the card's kernels against their plain versions on the
+               # card, over the same effect
+               "kernels_to_plain_over_effect": {
+                   v: grad_distance(card, plain_ct, names)
+                   / grad_distance(ref16, ref32, names)
+                   for v, names in (("all", None), ("ct", CT_PARAMS))}},
+           "f32_span": BF16_F32_SPAN, "card_cpu_span": BF16_CARD_CPU_SPAN}
+    lo, hi = BF16_F32_SPAN
+    if not (all(e <= b for e, b in loss_rows.values())
+            and all(lo <= res[v]["to_f32_over_effect"] <= hi
+                    and res[v]["to_bf16_over_effect"] <= BF16_CARD_CPU_SPAN
+                    for v in ("all", "ct"))):
+        raise AssertionError(f"bf16 card and CPU train losses or gradients "
+                             f"differ beyond their bands: {res}")
+    return res
+
+
+def bf16_blockwise_vs_flash(net, net32, batch, priors) -> dict:
+    """The bf16 model's loss and gradients on the card with the blockwise
+    backward against the flash one, from the same state on the anchors the
+    flash one mined (the float32 model ``net32`` on them gives the bf16
+    effect): losses to BLOCKWISE_LOSS_RTOL (the same forward walk), the CT
+    head's gradients and all of them each as one vector within
+    BF16_EFFECT_SHARE of the bf16 effect: the two backwards round at other
+    points (JAX's flash and blockwise kernels do), a difference of the
+    order of bf16 rounding itself."""
+    from ct_tpu_torch.train.step import LOSS_KEYS, loss_and_grads
+
+    net.ct_flash = True
+    flash, mask = loss_and_grads(net, batch, priors)
+    flash_grads = grads_of(net)
+    net.ct_flash = False
+    blockwise, _ = loss_and_grads(net, batch, priors, mask=mask)
+    blockwise_grads = grads_of(net)
+    net.ct_flash = True
+    loss_and_grads(net32, dict(batch, image=batch["image"].float()), priors,
+                   mask=mask)
+    ref32 = grads_of(net32)
+    net32.zero_grad(set_to_none=True)
+    loss_rel = {k: abs(blockwise[k].item() - flash[k].item())
+                / abs(flash[k].item()) for k in LOSS_KEYS}
+    res = {"loss_rel_err": loss_rel, "loss_rtol": BLOCKWISE_LOSS_RTOL,
+           "ct": bf16_effect_check("bf16 blockwise vs flash, CT head",
+                                   blockwise_grads, flash_grads, ref32,
+                                   CT_PARAMS),
+           "all": bf16_effect_check("bf16 blockwise vs flash",
+                                    blockwise_grads, flash_grads, ref32)}
+    if not max(loss_rel.values()) <= BLOCKWISE_LOSS_RTOL:
+        raise AssertionError(f"the bf16 blockwise train step's losses "
+                             f"disagree with the flash one's: {res}")
+    return res
+
+
+def phase_train_bf16(seed: int, out_dir: str) -> dict:
+    """``train.py --bf16`` on the card: the phase-2 incre model
+    (``ref_model.pth``) in bf16, ``init_reweight`` over 2 batches, 1
+    warm-up and 3 timed steps at batch 64 with the flash backward (the bf16
+    kernels' launches, a profile), card vs CPU at batch 2 by the bf16
+    effect, blockwise vs flash, 1 + 3 blockwise steps; then phase-2
+    transfer (C=60) from seeded weights in bf16, flash and blockwise."""
+    import torch
+
+    from ct_tpu_torch.config import VOC_300, resolve_task
+    from ct_tpu_torch.models.convert import load_reference_pth
+    from ct_tpu_torch.models.rfbnet import build_net
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.train.reweight import init_reweight
+    from ct_tpu_torch.train.solver import SolverConfig, build_optimizer
+    from ct_tpu_torch.train.step import TrainState, make_train_step
+
+    bf = torch.bfloat16
+    task = resolve_task(2, "incre", "ours", "VOC")
+    dev = torch.device("cuda")
+    batches = [dict(seeded_targets(seed + 30 + i, TRAIN_BATCH),
+                    image=seeded_images(seed + 30 + i, TRAIN_BATCH, 300))
+               for i in range(3)]
+    on_card = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+    priors = prior_boxes(VOC_300, dev)
+    net = build_net(task, 300, device=dev, dtype=bf)
+    net.load_state_dict(load_reference_pth(REF_MODEL))
+
+    class Batches:   # init_reweight's loader, images in bf16 as on the
+        def __init__(self):   # device-augment route
+            self.left = [dict(b, image=b["image"].to(bf))
+                         for b in on_card[:2]]
+
+        def next(self):
+            return self.left.pop(0)
+
+    t0 = time.perf_counter()
+    init_reweight(net, Batches(), priors, task, init_iter=2)
+    torch.cuda.synchronize()
+    res = {"init_reweight_s": time.perf_counter() - t0}
+    optimizer, scheduler = build_optimizer(net, task, SolverConfig())
+    train_state = TrainState(net, optimizer, scheduler)
+    step = make_train_step(priors)
+    batch = dict(on_card[2], image=on_card[2]["image"].to(bf))
+    res.update(train_steps(step, train_state, batch, True, TRAIN_STEPS))
+    res["profile"] = profile_step(lambda: step(train_state, batch), out_dir,
+                                  "profile_train_bf16.txt",
+                                  names=BF16_BWD_KERNELS[:2]
+                                  + BF16_BWD_KERNELS[4:]
+                                  + ("ct_attention_bf16_kernel",
+                                     "pool2x2_relu"))
+    res["card_vs_cpu"] = bf16_card_vs_cpu_train(task, net, batches[2],
+                                                priors)
+    net32 = build_net(task, 300, device=dev).train()
+    net32.load_state_dict(net.state_dict())
+    res["blockwise_vs_flash"] = bf16_blockwise_vs_flash(net, net32, batch,
+                                                        priors)
+    del net32
+    res["blockwise"] = train_steps(step, train_state, batch, False,
+                                   TRAIN_STEPS)
+    net.ct_flash = True
+    del net, train_state, optimizer
+    torch.cuda.empty_cache()
+
+    # transfer (C=60, padded to 64 in the kernels) from seeded weights
+    task = resolve_task(2, "transfer", "ours", "VOC")
+    tbatch = dict(seeded_targets(seed + 50, TRAIN_BATCH),
+                  image=seeded_images(seed + 50, TRAIN_BATCH, 300).to(bf))
+    tbatch = {k: v.to(dev) for k, v in tbatch.items()}
+    torch.manual_seed(seed)
+    net = build_net(task, 300, device=dev, dtype=bf)
+    optimizer, scheduler = build_optimizer(net, task, SolverConfig())
+    train_state = TrainState(net, optimizer, scheduler)
+    res["transfer"] = {"classes": task.src_cls_dim}
+    for flash in (True, False):
+        res["transfer"]["flash" if flash else "blockwise"] = train_steps(
+            step, train_state, tbatch, flash, TRAIN_STEPS)
+    return res
+
+
 def to_cpu(params):
     """A parameter record of ``data/augment_device.py`` with its tensors on
     the CPU."""
@@ -1814,10 +2470,14 @@ def to_cpu(params):
         for f in dataclasses.fields(params)})
 
 
-def augment_card_vs_cpu(seed: int) -> dict:
+def augment_card_vs_cpu(seed: int, bf16: bool = False) -> dict:
     """The device augmentation and mixup at batch 64 on the card against
     the same apply functions on the CPU, from the parameters drawn on the
-    card; and their ms per batch on the card (CUDA events)."""
+    card; and their ms per batch on the card (CUDA events). With ``bf16``
+    the images come out in bf16 (``--bf16``), held to one bf16 step of
+    the largest |value| (the f32 images' band, 2e-3, then one rounding
+    that may go the other way) with at most AUGMENT_BF16_SHARE of them a
+    step apart; mixup blends them in float32 and emits bf16."""
     import numpy as np
     import torch
 
@@ -1831,14 +2491,16 @@ def augment_card_vs_cpu(seed: int) -> dict:
     card = {k: v.cuda() for k, v in cpu.items()}
     card_images = images.cuda()
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    out_dtype = torch.bfloat16 if bf16 else None
     photo, geom = D.sample_augment(gen, card["boxes"], card["valid"])
     out = D.apply_augment(card_images, card["boxes"], card["labels"],
-                          card["valid"], photo, geom)
+                          card["valid"], photo, geom, out_dtype=out_dtype)
     ref = D.apply_augment(images, cpu["boxes"], cpu["labels"], cpu["valid"],
-                          to_cpu(photo), to_cpu(geom))
-    res = {"batch": b, "canvas": canvas,
-           "image_max_abs_err": (out["image"].cpu() - ref["image"]).abs()
-           .max().item(),
+                          to_cpu(photo), to_cpu(geom), out_dtype=out_dtype)
+    img_diff = (out["image"].cpu().float() - ref["image"].float()).abs()
+    res = {"batch": b, "canvas": canvas, "dtype": str(out["image"].dtype),
+           "image_max_abs_err": img_diff.max().item(),
+           "image_differing_share": (img_diff > 0).float().mean().item(),
            "box_max_abs_err": (out["boxes"].cpu() - ref["boxes"]).abs()
            .max().item(),
            "valid_equal": torch.equal(out["valid"].cpu(), ref["valid"]),
@@ -1854,11 +2516,22 @@ def augment_card_vs_cpu(seed: int) -> dict:
         (mixed[k].cpu().float() - mixed_ref[k].float()).abs().max().item()
         / (255.0 if k == "image" else 1.0) for k in mixed)
     res["augment_ms"] = cuda_ms(lambda: D.augment_batch(
-        gen, card_images, card["boxes"], card["labels"], card["valid"]), 5)
+        gen, card_images, card["boxes"], card["labels"], card["valid"],
+        out_dtype=out_dtype), 5)
     batch = dict(out, weights=card["weights"])
     res["mixup_ms"] = cuda_ms(lambda: D.mixup_batch(
         np.random.default_rng(seed), batch, zero_ignored=True), 5)
-    if not (res["image_max_abs_err"] <= AUGMENT_IMG_TOL
+    img_tol = AUGMENT_IMG_TOL
+    if bf16:
+        from ct_tpu_torch.ops.ct_attention import bf16_step
+
+        img_tol = bf16_step(ref["image"].float().abs().max().item())
+        res["image_tol"] = img_tol
+        if not (res["image_differing_share"] <= AUGMENT_BF16_SHARE
+                and mixed["image"].dtype == torch.bfloat16):
+            raise AssertionError(f"the bf16 device augmentation on the card "
+                                 f"disagrees with the CPU: {res}")
+    if not (res["image_max_abs_err"] <= img_tol
             and res["box_max_abs_err"] <= AUGMENT_BOX_TOL
             and res["valid_equal"] and res["mixup_max_abs_err"] <= MIXUP_TOL
             and torch.equal(out["labels"].cpu(), ref["labels"])):
@@ -1906,7 +2579,9 @@ def phase_train_cli(seed: int, out_dir: str) -> dict:
     from ct_tpu_torch.scripts import bench_pipeline
     from ct_tpu_torch.train import cli as train_cli
 
-    res = {"augment_card_vs_cpu": augment_card_vs_cpu(seed)}
+    res = {"augment_card_vs_cpu": augment_card_vs_cpu(seed),
+           "augment_card_vs_cpu_bf16": augment_card_vs_cpu(seed + 1,
+                                                           bf16=True)}
     save = os.path.join(out_dir, "train_cli")
     if os.path.exists(save):
         import shutil
@@ -1928,8 +2603,7 @@ def phase_train_cli(seed: int, out_dir: str) -> dict:
             "--save-folder", save])
     res["train_s"] = time.perf_counter() - t0
     res["train_launches"] = {n: fn.launches for n, fn in counts.items()}
-    used = ("ct_attention_cm_stats", "ct_attention_cm_bwd_flash",
-            "pool2x2_relu_fwd", "pool2x2_relu_bwd")
+    used = step_kernels(True)
     with open(os.path.join(save, "metrics.json")) as f:
         rows = [json.loads(line) for line in f]
     res["last"] = last
@@ -1962,6 +2636,57 @@ def phase_train_cli(seed: int, out_dir: str) -> dict:
     with Captured(os.path.join(out_dir, "bench_pipeline.txt")):
         res["bench_pipeline"] = bench_pipeline.main(["--iters", "5",
                                                      "--mixup"])
+
+    # train.py --bf16 through the CLI: the bf16 model and kernels, the
+    # augmentation's bf16 images, mixup on them
+    res["bf16"] = train_cli_bf16(out_dir)
+    return res
+
+
+def train_cli_bf16(out_dir: str) -> dict:
+    """``python -m ct_tpu_torch.train --bf16 --device-augment --mixup`` for
+    TRAIN_CLI_BF16_ITERS iterations at batch 64 from ``ref_model.pth``
+    (mixup off for the last 2): finite losses, a ``metrics.json`` row at
+    the last iteration, the launches of the bf16 training kernels (and
+    none of the float32 ones), its iteration time."""
+    import json
+
+    from ct_tpu_torch.train import cli as train_cli
+
+    save = os.path.join(out_dir, "train_cli_bf16")
+    if os.path.exists(save):
+        import shutil
+
+        shutil.rmtree(save)
+    os.makedirs(save)
+    counts = training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with Captured(os.path.join(out_dir, "train_cli_bf16.txt")):
+        last = train_cli.main([
+            "-p", "2", "--setting", "incre", "--split", "1", "--shot", "5",
+            "--bf16", "--device-augment", "--mixup", "-b", str(TRAIN_BATCH),
+            "--init-iter", "2", "--max-iter", str(TRAIN_CLI_BF16_ITERS),
+            "--no-mixup-iter", "2", "--warmup-iter", "0", "--steps", "20",
+            "--load-file", REF_MODEL, "--save-folder", save])
+    res = {"train_s": time.perf_counter() - t0, "last": last,
+           "launches": {n: fn.launches for n, fn in counts.items()}}
+    with open(os.path.join(save, "metrics.json")) as f:
+        res["metrics_rows"] = [json.loads(line) for line in f]
+    # each iteration's step; the 2 OBJ_Target init batches run the train-
+    # mode forward without a gradient (conv1's pool, the eval attention)
+    init = {"pool2x2_relu_fwd_bf16": 2, "ct_attention_cm_bf16": 2}
+    expected = {n: TRAIN_CLI_BF16_ITERS + init.get(n, 0)
+                if n in step_kernels(True, bf16=True) else init.get(n, 0)
+                for n in counts}
+    if not (res["launches"] == expected
+            and [r["iteration"] for r in res["metrics_rows"]]
+            == [TRAIN_CLI_BF16_ITERS]
+            and all(math.isfinite(v) for r in res["metrics_rows"] + [last]
+                    for v in r.values())):
+        raise AssertionError(f"the bf16 train CLI run is wrong: {res}")
+    res["images_per_s"] = TRAIN_BATCH / res["metrics_rows"][-1]["time"]
     return res
 
 
@@ -1980,7 +2705,8 @@ def phase_bench(out_dir: str) -> dict:
     from ct_tpu_torch.ops.bias_relu import bias_relu_bwd
     from ct_tpu_torch.ops.ct_attention import (
         ct_attention, ct_attention_bf16, ct_attention_bwd,
-        ct_attention_cm_bwd, ct_attention_variant, ct_attention_variant_bf16,
+        ct_attention_bwd_bf16, ct_attention_cm_bwd, ct_attention_cm_bwd_bf16,
+        ct_attention_variant, ct_attention_variant_bf16,
     )
     from ct_tpu_torch.scripts import (
         bench_bias_relu_bwd, bench_ct_attention, bench_ct_bwd,
@@ -1992,7 +2718,9 @@ def phase_bench(out_dir: str) -> dict:
               "ct_attention_cm_bwd": ct_attention_cm_bwd,
               "bias_relu_bwd": bias_relu_bwd,
               "ct_attention_bf16": ct_attention_bf16,
-              "ct_attention_variant_bf16": ct_attention_variant_bf16}
+              "ct_attention_variant_bf16": ct_attention_variant_bf16,
+              "ct_attention_bwd_bf16": ct_attention_bwd_bf16,
+              "ct_attention_cm_bwd_bf16": ct_attention_cm_bwd_bf16}
     for fn in counts.values():
         fn.launches = 0
     # the attention bench on bf16 inputs, as the JAX bench feeds them, then
@@ -2001,8 +2729,12 @@ def phase_bench(out_dir: str) -> dict:
                ("bench_ct_attention_f32", bench_ct_attention,
                 ["--iters", "3", "--dtype", "float32"]),
                ("bench_ct_bwd", bench_ct_bwd, ["--iters", "2"]),
+               ("bench_ct_bwd_f32", bench_ct_bwd,
+                ["--iters", "2", "--dtype", "float32"]),
                ("bench_ct_bwd_512", bench_ct_bwd, ["--size", "512",
                                                    "--iters", "2"]),
+               ("bench_ct_bwd_512_f32", bench_ct_bwd,
+                ["--size", "512", "--iters", "2", "--dtype", "float32"]),
                ("bench_bias_relu_bwd", bench_bias_relu_bwd,
                 ["--iters", "3"]))
     res = {}
@@ -2018,7 +2750,7 @@ def phase_bench(out_dir: str) -> dict:
     if not all(res["launches"].values()):
         raise AssertionError(f"a bench kernel did not run: "
                              f"{res['launches']}")
-    for name in ("bench_ct_bwd", "bench_ct_bwd_512"):
+    for name in ("bench_ct_bwd_f32", "bench_ct_bwd_512_f32"):
         rel = {f"{check}.{grad}": e["rel"]
                for check in ("rowmajor_vs_plain", "classmajor_vs_plain",
                              "flash_vs_plain", "rowmajor_vs_classmajor",
@@ -2027,6 +2759,21 @@ def phase_bench(out_dir: str) -> dict:
         res[name]["worst_rel"] = max(rel.values())
         if not res[name]["worst_rel"] <= BWD_TOL:
             raise AssertionError(f"{name}: a backward disagrees: {rel}")
+    # bf16: each backward against its plain bf16 version, in the max of
+    # bf16_sum_check's band (the bench prints no means); the two layouts'
+    # and the two backwards' cross-errors are readings (they round at
+    # other points, as JAX's do)
+    for name in ("bench_ct_bwd", "bench_ct_bwd_512"):
+        rows = {}
+        for check in ("rowmajor_vs_plain", "classmajor_vs_plain",
+                      "flash_vs_plain"):
+            for grad, e in res[name][check].items():
+                rows[f"{check}.{grad}"] = e["max_abs_err"] / (
+                    BF16_SUM_MAX_TOL * e["max_abs"])
+        res[name]["worst_over_band"] = max(rows.values())
+        if not res[name]["worst_over_band"] <= 1.0:
+            raise AssertionError(f"{name}: a bf16 backward disagrees with "
+                                 f"its plain version: {rows}")
     return res
 
 
@@ -2118,6 +2865,9 @@ def kernels_line(results: dict) -> list:
         return max(kern[c][key] for c in kern if c.startswith(prefix))
 
     incre, timed, pool = kern["incre"], kern["train_timed"], kern["pool_timed"]
+    b16, pool16 = kern["bf16_train_timed"], kern["bf16_pool_timed"]
+    train16 = results["train_bf16"]["launches"]
+    blockwise16 = results["train_bf16"]["blockwise"]["launches"]
     attn_err = max(max(v for n, v in kern[c]["stats_err"].items()
                        if n != "z_rel")
                    for c in kern if c.startswith("train_"))
@@ -2181,6 +2931,23 @@ def kernels_line(results: dict) -> list:
         "ct_attention_bf16": bf16_pipes(kern["bf16_rowmajor"]["fwd"]),
         "ct_attention_variant_bf16": bf16_pipes(
             kern["bf16_rowmajor"]["variant"]),
+        # bf16 training: rows 2, 3 and 4 at both widths, the backwards
+        # split by kernel
+        "ct_attention_cm_stats_bf16": {
+            **bf16_pipes(b16["stats"]),
+            **at_width(kern["bf16_train_timed_transfer"]["stats"], 60)},
+        "ct_attention_cm_bwd_flash_bf16": {
+            **bf16_pipes(b16["bwd"]), "kernels_ms": b16["bwd"]["kernels_ms"],
+            **at_width(kern["bf16_train_timed_transfer"]["bwd"], 60),
+            "kernels_ms_c60":
+                kern["bf16_train_timed_transfer"]["bwd"]["kernels_ms"]},
+        "ct_attention_cm_bwd_bf16": {
+            **bf16_pipes(kern["bf16_blockwise_timed"]),
+            "kernels_ms": kern["bf16_blockwise_timed"]["kernels_ms"],
+            **at_width(kern["bf16_blockwise_timed_transfer"], 60),
+            "kernels_ms_c60":
+                kern["bf16_blockwise_timed_transfer"]["kernels_ms"]},
+        "ct_attention_bwd_bf16": bf16_pipes(kern["bf16_rowmajor_bwd_timed"]),
     }
     bf16 = results["bf16"]
     rows = [
@@ -2230,6 +2997,26 @@ def kernels_line(results: dict) -> list:
          max(kern[c]["variant"]["max_abs_err"] for c in
              ("bf16_rowmajor", "bf16_rowmajor_ragged")),
          kern["bf16_rowmajor"]["variant"]),
+        ("ct_attention_cm_stats_bf16", "ct_attention_cm.cu", att + "209",
+         train16, max(kern[c]["stats"]["max_abs_err"] for c in kern
+                      if c.startswith("bf16_train_")), b16["stats"]),
+        ("ct_attention_cm_bwd_flash_bf16", "ct_attention_bwd_bf16.cu",
+         att + "520", train16, max(kern[c]["bwd"]["max_abs_err"] for c in kern
+                                   if c.startswith("bf16_train_")),
+         b16["bwd"]),
+        ("ct_attention_cm_bwd_bf16", "ct_attention_bwd_bf16.cu",
+         att + "364", blockwise16, worst("bf16_blockwise_"),
+         kern["bf16_blockwise_timed"]),
+        ("ct_attention_bwd_bf16", "ct_attention_bwd_bf16.cu", att + "283",
+         bench, worst("bf16_rowmajor_bwd"), kern["bf16_rowmajor_bwd_timed"]),
+        ("pool2x2_relu_fwd_bf16", "pool2x2_relu.cu",
+         "ct_tpu/ops/pool_packed_pallas.py:56", train16,
+         max(kern[c]["fwd_max_abs_err"] for c in kern
+             if c.startswith("bf16_pool")), pool16["fwd"]),
+        ("pool2x2_relu_bwd_bf16", "pool2x2_relu.cu",
+         "ct_tpu/ops/pool_packed_pallas.py:66", train16,
+         max(kern[c]["bwd_max_abs_err"] for c in kern
+             if c.startswith("bf16_pool")), pool16["bwd"]),
     ]
     return [{"name": name, "route": "cuda",
              "source": "ct_tpu_torch/csrc/" + src, "replaces": replaces,
@@ -2273,6 +3060,8 @@ def main(argv=None) -> int:
                      ("bf16", lambda: phase_bf16(args.seed, PROFILE_DIR)),
                      ("train", lambda: phase_train(args.seed, PROFILE_DIR)),
                      ("transfer", lambda: phase_transfer(args.seed)),
+                     ("train_bf16", lambda: phase_train_bf16(args.seed,
+                                                             PROFILE_DIR)),
                      ("train_cli", lambda: phase_train_cli(args.seed,
                                                            PROFILE_DIR)),
                      ("bench", lambda: phase_bench(PROFILE_DIR))):

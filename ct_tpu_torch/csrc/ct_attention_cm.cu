@@ -47,14 +47,18 @@
 // (the last tile is zero-filled and its dead keys masked) and padded
 // classes (zero, never stored) are handled in the walk.
 //
-// bfloat16 (ct_attention_cm_bf16, ct_attention_bf16 and
-// ct_attention_variant_bf16): the same function on bf16 q, k, v and base,
-// f32 wz, bf16 out, with the JAX kernels' rounding points, on the bf16 walk
-// (ct_attention_bf16.cuh: one m16n8k16 product per tile, the weights
-// rounded to bf16 against the final max, the denominator from v's ones
-// column). Its bound is its B*P*K exponentials on the special-function
-// units, not its products (PERF.md §6). The epilogue divides by the
-// denominator, out = bf16(base + wz * num / den), rounded to nearest even.
+// bfloat16 (ct_attention_cm_bf16, ct_attention_cm_stats_bf16,
+// ct_attention_bf16 and ct_attention_variant_bf16): the same function on
+// bf16 q, k, v and base, f32 wz, bf16 out, with the JAX kernels' rounding
+// points, on the bf16 walk (ct_attention_bf16.cuh: one m16n8k16 product per
+// tile, the weights rounded to bf16 against the final max, the denominator
+// from v's ones column). Its bound is its B*P*K exponentials on the
+// special-function units, not its products (PERF.md §6). The epilogue
+// divides by the denominator, out = bf16(base + wz * num / den), rounded
+// to nearest even; the training forward (`_kernel_cm_stats` on bf16) also
+// stores delta = num / den rounded to bf16, as JAX saves it in base's type,
+// and m and z = den in f32, for the bf16 flash backward
+// (ct_attention_bwd_bf16.cu).
 
 #include "ct_attention_bf16.cuh"
 #include "ct_attention_mma.cuh"
@@ -232,14 +236,17 @@ namespace {
 
 using ct::bf::bf16;
 
-template <int CP, bool kRowMajor, bool kExpBf16>
+template <int CP, bool kRowMajor, bool kExpBf16, bool kStats>
 __global__ void __launch_bounds__(kThreads, ct::bf::kMinBlocks<CP>)
 ct_attention_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ kp,
                          const bf16* __restrict__ vp,
                          const bf16* __restrict__ base,
                          const float* __restrict__ wz,
-                         bf16* __restrict__ out, int C, int P, int K) {
+                         bf16* __restrict__ out, bf16* __restrict__ delta,
+                         float* __restrict__ m_out, float* __restrict__ z_out,
+                         int C, int P, int K) {
+  static_assert(!(kStats && kRowMajor), "statistics are class-major only");
   constexpr int kBytes = ct::bf::kWalkBytes<CP>;
   static_assert(CP * kStageStride * 4 <= kBytes &&
                     kRows * (CP + 1) * 4 <= kBytes,
@@ -261,6 +268,13 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
 
   // the numerators and (column C) the denominator into the stage
   __syncthreads();  // the key tiles are no longer read
+  if (kStats && tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + warp * 16 + gq + h * 8;
+      if (p < P) m_out[static_cast<size_t>(b) * P + p] = m[h];
+    }
+  }
 #pragma unroll
   for (int nn = 0; nn < NN; ++nn) {
 #pragma unroll
@@ -295,16 +309,22 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
                                   stagef[C * kStageStride + i]);
         out[at] = __float2bfloat16_rn(
             __fadd_rn(__bfloat162float(base[at]), __fmul_rn(d, wz[c])));
+        if (kStats) delta[at] = __float2bfloat16_rn(d);
       }
+    }
+    if (kStats && threadIdx.x < rows) {
+      z_out[static_cast<size_t>(b) * P + p0 + threadIdx.x] =
+          stagef[C * kStageStride + threadIdx.x];
     }
   }
 }
 
 // pad k and v into scratch [2][B][K][CP], then the walk
-template <bool kRowMajor, bool kExpBf16>
+template <bool kRowMajor, bool kExpBf16, bool kStats = false>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* base, const void* wz, void* out, void* scratch,
-                int B, int C, int P, int K, void* stream) {
+                int B, int C, int P, int K, void* stream,
+                void* delta = nullptr, void* m = nullptr, void* z = nullptr) {
   if (B <= 0 || C <= 0 || C >= 64 || P <= 0 || K <= 0 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -325,12 +345,17 @@ int launch_bf16(const void* q, const void* k, const void* v,
   const bf16* bb = static_cast<const bf16*>(base);
   const float* wf = static_cast<const float*>(wz);
   bf16* ob = static_cast<bf16*>(out);
+  bf16* db = static_cast<bf16*>(delta);
+  float* mf = static_cast<float*>(m);
+  float* zf = static_cast<float*>(z);
   if (CP == 16) {
-    ct_attention_bf16_kernel<16, kRowMajor, kExpBf16>
-        <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, C, P, K);
+    ct_attention_bf16_kernel<16, kRowMajor, kExpBf16, kStats>
+        <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, db, mf, zf, C, P,
+                                    K);
   } else {
-    ct_attention_bf16_kernel<64, kRowMajor, kExpBf16>
-        <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, C, P, K);
+    ct_attention_bf16_kernel<64, kRowMajor, kExpBf16, kStats>
+        <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, db, mf, zf, C, P,
+                                    K);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -350,6 +375,20 @@ extern "C" int ct_attention_cm_bf16(const void* q, const void* k,
                                     void* stream) {
   return launch_bf16<false, false>(q, k, v, base, wz, out, scratch, B, C, P,
                                    K, stream);
+}
+
+// Class-major training forward: out and delta [B,C,P] bf16 (delta, the
+// attention before wz, rounded to bf16 as `_kernel_cm_stats` saves it in
+// base's type), m and z [B,1,P] float32: the row max of the f32 scores and
+// the sum of the bf16-rounded weights (the walk's ones column).
+extern "C" int ct_attention_cm_stats_bf16(const void* q, const void* k,
+                                          const void* v, const void* base,
+                                          const void* wz, void* out,
+                                          void* delta, void* m, void* z,
+                                          void* scratch, int B, int C, int P,
+                                          int K, void* stream) {
+  return launch_bf16<false, false, true>(q, k, v, base, wz, out, scratch, B,
+                                         C, P, K, stream, delta, m, z);
 }
 
 // Row-major forward: q, base, out [B,P,C] (the attention bench).

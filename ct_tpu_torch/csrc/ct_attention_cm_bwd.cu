@@ -164,28 +164,6 @@ bwd_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-constexpr int kReduceThreads = 256;
-
-// dwz[c] = sum over the n partial rows of part[:, c], in a fixed order: one
-// block per class, a strided sum per thread, then a tree in shared memory.
-__global__ void __launch_bounds__(kReduceThreads)
-dwz_reduce_kernel(const float* __restrict__ part, float* __restrict__ dwz,
-                  int n, int C) {
-  __shared__ float red[kReduceThreads];
-  const int c = blockIdx.x;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += kReduceThreads) {
-    s += part[static_cast<size_t>(i) * C + c];
-  }
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = kReduceThreads / 2; w > 0; w /= 2) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) dwz[c] = red[0];
-}
-
 template <int CP, bool kRowMajor>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,

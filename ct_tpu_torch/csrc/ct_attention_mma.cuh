@@ -583,4 +583,28 @@ __device__ __forceinline__ void attend(const RowsA<CP / 8, true>& qa,
   }
 }
 
+// The blockwise backwards' dwz (ct_attention_cm_bwd.cu,
+// ct_attention_bwd_bf16.cu): dwz[c] = the sum over the n partial rows of
+// part[:, c], in a fixed order: one block per class, a strided sum per
+// thread, then a tree in shared memory.
+constexpr int kReduceThreads = 256;
+
+__global__ void __launch_bounds__(kReduceThreads)
+dwz_reduce_kernel(const float* __restrict__ part, float* __restrict__ dwz,
+                  int n, int C) {
+  __shared__ float red[kReduceThreads];
+  const int c = blockIdx.x;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += kReduceThreads) {
+    s += part[static_cast<size_t>(i) * C + c];
+  }
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = kReduceThreads / 2; w > 0; w /= 2) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) dwz[c] = red[0];
+}
+
 }  // namespace ct

@@ -28,7 +28,7 @@ boxes [B, M, 4] in percent point form, labels [B, M], valid [B, M].
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -326,11 +326,17 @@ def geometry_apply(images: torch.Tensor, boxes: torch.Tensor,
 def apply_augment(images: torch.Tensor, boxes: torch.Tensor,
                   labels: torch.Tensor, valid: torch.Tensor,
                   photo: Photometric, geom: Geometry, out_size: int = 300,
-                  means: Sequence[float] = RGB_MEANS) -> Dict[str, torch.Tensor]:
+                  means: Sequence[float] = RGB_MEANS,
+                  out_dtype: Optional[torch.dtype] = None
+                  ) -> Dict[str, torch.Tensor]:
     """The augmentation from drawn parameters: images [B, 3, S, S] of any
-    dtype (cast to float32 once) → the batch's augmented dict."""
+    dtype (cast to float32 once) → the batch's augmented dict, its images
+    computed in float32 and, with ``out_dtype`` (the model's compute type,
+    bf16 under ``--bf16``), rounded to it once at the end."""
     img = photometric_apply(images.to(torch.float32), photo)
     img, nb, nv = geometry_apply(img, boxes, valid, geom, out_size, means)
+    if out_dtype is not None:
+        img = img.to(out_dtype)
     return {"image": img, "boxes": nb, "labels": labels, "valid": nv}
 
 
@@ -338,12 +344,15 @@ def augment_batch(gen: torch.Generator, images: torch.Tensor,
                   boxes: torch.Tensor, labels: torch.Tensor,
                   valid: torch.Tensor, out_size: int = 300,
                   expand_prob: float = 0.6,
-                  means: Sequence[float] = RGB_MEANS) -> Dict[str, torch.Tensor]:
-    """Draw from ``gen`` and augment: mean-subtracted float32 images
-    [B, 3, out, out] and the transformed fixed-shape targets."""
+                  means: Sequence[float] = RGB_MEANS,
+                  out_dtype: Optional[torch.dtype] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Draw from ``gen`` and augment: mean-subtracted images [B, 3, out,
+    out], float32 or ``out_dtype`` (as ``augment_jax.augment_batch``'s),
+    and the transformed fixed-shape targets."""
     photo, geom = sample_augment(gen, boxes, valid, expand_prob)
     return apply_augment(images, boxes, labels, valid, photo, geom,
-                         out_size, means)
+                         out_size, means, out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -365,7 +374,8 @@ def apply_mixup(batch: Mapping[str, torch.Tensor], lam: torch.Tensor,
     """Blend each image with its partner, the batch rolled by ``offset``,
     at λ and 1 − λ, and carry both targets (2M rows), weighted λ and
     1 − λ. ``zero_ignored`` (incre, instance shots): rows labelled −1
-    weigh 0."""
+    weigh 0. The blend runs in float32 and comes out in the images' type
+    (a second rounding for bf16 images, as in ``augment_jax``)."""
     images = batch["image"]
 
     def partner(x):

@@ -72,6 +72,24 @@ SIGNATURES = {
     "ct_attention_serving_bf16": ("ct_attention_serving",
                                   "ct_attention_serving_bf16",
                                   (_P,) * 9 + (_I,) * 5 + (_F, _P)),
+    "ct_attention_cm_stats_bf16": ("ct_attention_cm",
+                                   "ct_attention_cm_stats_bf16",
+                                   (_P,) * 10 + (_I,) * 4 + (_P,)),
+    # the bf16 backwards: three more pointers, the scratch of the padded k
+    # and v, of the padded q and g·wz, and of the statistics
+    "ct_attention_cm_bwd_flash_bf16": ("ct_attention_bwd_bf16",
+                                       "ct_attention_cm_bwd_flash_bf16",
+                                       (_P,) * 14 + (_I,) * 4 + (_P,)),
+    "ct_attention_cm_bwd_bf16": ("ct_attention_bwd_bf16",
+                                 "ct_attention_cm_bwd_bf16",
+                                 (_P,) * 13 + (_I,) * 4 + (_P,)),
+    "ct_attention_bwd_bf16": ("ct_attention_bwd_bf16",
+                              "ct_attention_bwd_bf16",
+                              (_P,) * 13 + (_I,) * 4 + (_P,)),
+    "pool2x2_relu_fwd_bf16": ("pool2x2_relu", "pool2x2_relu_fwd_bf16",
+                              (_P, _P, _L, _I, _I, _P)),
+    "pool2x2_relu_bwd_bf16": ("pool2x2_relu", "pool2x2_relu_bwd_bf16",
+                              (_P, _P, _P, _P, _L, _I, _I, _P)),
 }
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
 

@@ -15,10 +15,15 @@ runs the JAX package's ``dtype=bfloat16`` model: parameters stay float32;
 a conv casts its input and kernel to bfloat16 and emits bfloat16, then adds
 its bias in bfloat16 (``promote_dtype``, then ``y + bias``); BN takes the
 bf16 map with its float32 statistics and emits bf16 (``nn.BatchNorm2d``
-computes in float32 and rounds once, as flax's ``dtype=bf16`` BN does);
-the ReLU, the pools and the RFB blocks' ``out·scale + shortcut`` follow
-the type of their inputs. An int8 conv rescales in float32 and emits the
-compute dtype.
+computes in float32 and rounds once, as flax's ``dtype=bf16`` BN does; in
+train mode it takes the batch statistics in float32 too, as flax's
+``force_float32_reductions`` does; torch sums the variance about the
+mean where flax takes E[x²] − E[x]², which differ in float32 rounding
+alone; and its backward
+returns the bf16 cotangent of the bf16 input); the ReLU, the pools and the
+RFB blocks' ``out·scale + shortcut`` follow the type of their inputs, the
+ReLU's gradient that of its cotangent (``relu_save_out``). An int8 conv
+rescales in float32 and emits the compute dtype.
 """
 
 from __future__ import annotations

@@ -27,12 +27,14 @@ the fused serving head ``ct_attention_serving`` in its place. Its convs
 take the int8 path once ``models/quantize.py`` attaches their scales.
 
 ``dtype=torch.bfloat16`` builds the JAX package's ``build_net(...,
-dtype=jnp.bfloat16)`` for evaluation and serving: float32 parameters, bf16
-convs, BN and RFB blocks (``models/layers.py``), the CT projections in
-bf16 (a product, then its bias, in bf16), the CT attention's bf16 kernels;
-loc and conf_feat come out float32, conf and obj float32 for evaluation
-and bf16 on the serving path, as the JAX package returns them. A bf16
-model has no training forward yet (the next slice of the port).
+dtype=jnp.bfloat16)``: float32 parameters, bf16 convs, BN and RFB blocks
+(``models/layers.py``), the CT projections in bf16 (a product, then its
+bias, in bf16), the CT attention's bf16 kernels; loc and conf_feat come
+out float32, conf and obj float32 for evaluation and training and bf16 on
+the serving path, as the JAX package returns them. In train mode it is
+``train.py --bf16``'s model: BN on batch statistics taken in float32, the
+conv1 pool+ReLU in bf16, the CT attention's bf16 training kernels; the
+gradients reach the float32 parameters through the casts.
 """
 
 from __future__ import annotations
@@ -304,11 +306,6 @@ class RFBNet(nn.Module):
         task = self.task
         src_c = task.src_cls_dim
         b = x.shape[0]
-        if self.training and self.dtype != torch.float32:
-            raise NotImplementedError(
-                "RFBNet: a bfloat16 model has no training forward yet; bf16 "
-                "training is the next slice of the port (ROADMAP Queue 1 "
-                "item 4, bf16 training)")
 
         sources = []
         fused = self.fused_relu_idx if self.training else None
@@ -412,7 +409,7 @@ def build_net(task: TaskSpec, size: int = 300, device="cuda",
     ``fold_bn`` builds the serving model, whose weights come folded,
     ``ct_flash=False`` trains the CT attention with its blockwise
     backward, and ``dtype=torch.bfloat16`` computes in bfloat16 (the JAX
-    package's ``--bf16``; evaluation and serving only)."""
+    package's ``--bf16``: evaluation, serving and training)."""
     if size not in (64, 300, 512):
         raise ValueError("Only RFBNet300 and RFBNet512 are supported "
                          "(plus the size-64 test variant).")

@@ -56,8 +56,18 @@ the weights e = exp(s − max s) rounded to bf16 before P·V, the denominator
 serving head's q and normalised novel rounded where JAX rounds them). CUDA
 tensors go to the bf16 kernels (``csrc/ct_attention_bf16.cuh``), counted on
 ``ct_attention_cm_bf16.launches`` and its siblings; CPU tensors to the
-plain bf16 versions. They have no backward: bf16 training is the next
-slice, and a bf16 call that would need a gradient raises.
+plain bf16 versions.
+
+``ct_attention_cm`` and ``ct_attention`` are differentiable in bf16 too,
+as ``train.py --bf16`` trains (``_fwd_cm``/``_bwd_cm`` on bf16 operands):
+the flash forward ``ct_attention_cm_stats_bf16`` (delta saved in bf16, m
+and z in f32) and backward ``ct_attention_cm_bwd_flash_bf16``, the
+blockwise backward ``ct_attention_cm_bwd_bf16`` and the row-major one
+``ct_attention_bwd_bf16`` (``csrc/ct_attention_bwd_bf16.cu``), each with a
+plain version that rounds where the JAX kernel rounds (listed in the
+source's note). dq comes back bf16, dk and dv as f32 sums that the
+autograd rounds to bf16, as ``_bwd_cm`` casts them, and dwz f32. The types
+must agree: bf16 q, k, v and base with f32 wz, or all f32.
 """
 
 from __future__ import annotations
@@ -114,23 +124,6 @@ def ct_attention_reference_cm_bf16(q_cm, k, v, base_cm, wz):
     return out.to(BF16)
 
 
-def _no_grad_bf16(fn, *tensors):
-    """Raise where a bf16 call would need a gradient: the bf16 kernels are
-    forwards only."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{fn}: the bfloat16 CT attention has no backward; bf16 training "
-            "is the next slice of the port (ROADMAP Queue 1 item 4, bf16 "
-            "training)")
-
-
-def _f32_only(fn, t):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{fn}: {t.dtype} has no kernel here; bf16 training "
-                        "is the next slice of the port (ROADMAP Queue 1 item "
-                        "4, bf16 training)")
-
-
 def _padded_classes(c: int) -> int:
     """The bf16 walk's class count: C and the ones column (csrc
     ``padded_classes``)."""
@@ -150,13 +143,12 @@ def _launch_bf16(wrapper, q, k, v, base, wz, row_major: bool):
 
 
 def ct_attention_cm_bf16(q_cm, k, v, base_cm, wz) -> torch.Tensor:
-    """The bf16 class-major eval forward → [B, C, P] bf16; forward only.
+    """The bf16 class-major eval forward → [B, C, P] bf16.
     CUDA tensors go to the kernel, counted on
     ``ct_attention_cm_bf16.launches``; CPU tensors to the plain version."""
     _check(q_cm, k, v, base_cm, wz, "ct_attention_cm_bf16")
     if q_cm.dtype != BF16:
         raise TypeError(f"ct_attention_cm_bf16: q_cm is {q_cm.dtype}")
-    _no_grad_bf16("ct_attention_cm_bf16", q_cm, k, v, base_cm, wz)
     if _device("ct_attention_cm_bf16", q_cm) == "cpu":
         return ct_attention_reference_cm_bf16(q_cm, k, v, base_cm, wz)
     return _launch_bf16(ct_attention_cm_bf16, q_cm, k, v, base_cm, wz, False)
@@ -259,9 +251,10 @@ def _device(name, t):
 def ct_attention_cm_stats(q_cm, k, v, base_cm, wz):
     """Training forward → (out [B,C,P], delta [B,C,P], m [B,1,P],
     z [B,1,P]), float32; the kernel on CUDA tensors, else the plain
-    version."""
+    version. bf16 inputs go to ``ct_attention_cm_stats_bf16``."""
     _check(q_cm, k, v, base_cm, wz)
-    _f32_only("ct_attention_cm_stats", q_cm)
+    if q_cm.dtype == BF16:
+        return ct_attention_cm_stats_bf16(q_cm, k, v, base_cm, wz)
     if _device("ct_attention_cm_stats", q_cm) == "cpu":
         return ct_attention_cm_stats_reference(q_cm, k, v, base_cm, wz)
     b, c, p = q_cm.shape
@@ -278,18 +271,17 @@ def ct_attention_cm_stats(q_cm, k, v, base_cm, wz):
 def ct_attention_cm_bwd_flash(q_cm, k, v, wz, g_cm, m, z, colsum):
     """Flash backward → (dq [B,C,P], dk [B,K,C], dv [B,K,C]) from the saved
     row max ``m`` and denominator ``z`` and ``colsum`` = Σ_c g·delta·wz,
-    all [B,1,P]; the kernel on CUDA tensors, else the plain version."""
+    all [B,1,P] float32; the kernel on CUDA tensors, else the plain
+    version. bf16 inputs go to ``ct_attention_cm_bwd_flash_bf16``."""
     _check(q_cm, k, v, g_cm, wz)
-    _f32_only("ct_attention_cm_bwd_flash", q_cm)
-    b, c, p = q_cm.shape
-    for name, t in (("m", m), ("z", z), ("colsum", colsum)):
-        if (tuple(t.shape) != (b, 1, p) or t.dtype != torch.float32
-                or t.device != q_cm.device):
-            raise ValueError(f"ct_attention_cm_bwd_flash: {name} must be "
-                             f"float32 [{b}, 1, {p}] on {q_cm.device}")
+    _check_stats("ct_attention_cm_bwd_flash", q_cm, m, z, colsum)
+    if q_cm.dtype == BF16:
+        return ct_attention_cm_bwd_flash_bf16(q_cm, k, v, wz, g_cm, m, z,
+                                              colsum)
     if _device("ct_attention_cm_bwd_flash", q_cm) == "cpu":
         return ct_attention_cm_bwd_flash_reference(q_cm, k, v, wz, g_cm, m,
                                                    z, colsum)
+    b, c, p = q_cm.shape
     dq = torch.empty_like(q_cm)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -323,16 +315,209 @@ def ct_attention_cm_bwd(q_cm, k, v, wz, g_cm):
     """Blockwise (non-flash) backward → (dq [B,C,P], dk [B,K,C],
     dv [B,K,C], dwz [C]) from q, k, v, wz and the upstream gradient alone,
     as ``_bwd_call_cm`` takes them; the kernel on CUDA tensors, else the
-    plain version."""
+    plain version. bf16 inputs go to ``ct_attention_cm_bwd_bf16``."""
     _check(q_cm, k, v, g_cm, wz, "ct_attention_cm_bwd")
-    _f32_only("ct_attention_cm_bwd", q_cm)
+    if q_cm.dtype == BF16:
+        return ct_attention_cm_bwd_bf16(q_cm, k, v, wz, g_cm)
     if _device("ct_attention_cm_bwd", q_cm) == "cpu":
         return ct_attention_cm_bwd_reference(q_cm, k, v, wz, g_cm)
     return _blockwise_bwd(ct_attention_cm_bwd, q_cm, k, v, wz, g_cm, False)
 
 
+def _check_stats(fn, q_cm, m, z, colsum):
+    b, c, p = q_cm.shape
+    for name, t in (("m", m), ("z", z), ("colsum", colsum)):
+        if (tuple(t.shape) != (b, 1, p) or t.dtype != torch.float32
+                or t.device != q_cm.device):
+            raise ValueError(f"{fn}: {name} must be float32 [{b}, 1, {p}] "
+                             f"on {q_cm.device}")
+
+
+# --- bfloat16 training: rows 2, 3, 4 and 5's backward ----------------------
+
+def ct_attention_cm_stats_reference_bf16(q_cm, k, v, base_cm, wz):
+    """The plain bf16 training forward (``_kernel_cm_stats`` on bf16
+    operands) → (out bf16, delta bf16 [B,C,P], m, z f32 [B,1,P]): f32
+    scores, the weights rounded to bf16 against the row max m, z their f32
+    sum, delta = Σ e·v / z in f32, rounded to bf16 once for out (with base
+    and wz) and once for itself."""
+    s = torch.einsum("bkc,bcp->bkp", k.float(), q_cm.float())
+    m = s.amax(dim=1, keepdim=True)
+    e = torch.exp(s - m).to(BF16).float()
+    z = e.sum(dim=1, keepdim=True)
+    delta = torch.einsum("bkp,bkc->bcp", e, v.float()) / z
+    out = base_cm.float() + delta * wz[None, :, None]
+    return out.to(BF16), delta.to(BF16), m, z
+
+
+def ct_attention_cm_bwd_flash_reference_bf16(q_cm, k, v, wz, g_cm, m, z,
+                                             colsum):
+    """The plain bf16 flash backward (``_bwd_kernel_cm_flash`` on bf16
+    operands) → (dq bf16 [B,C,P], dk, dv f32 [B,K,C]): attn = e^(s−m)·(1/z)
+    unrounded; g·wz rounded to bf16 before both its products; ds =
+    bf16(attn·(dattn − colsum)); dv from the bf16-rounded attn."""
+    s = torch.einsum("bkc,bcp->bkp", k.float(), q_cm.float())
+    attn = torch.exp(s - m) * (1.0 / z)
+    gv = (g_cm.float() * wz[None, :, None]).to(BF16).float()
+    dattn = torch.einsum("bkc,bcp->bkp", v.float(), gv)
+    ds = (attn * (dattn - colsum)).to(BF16).float()
+    dq = torch.einsum("bkc,bkp->bcp", k.float(), ds).to(BF16)
+    dk = torch.einsum("bcp,bkp->bkc", q_cm.float(), ds)
+    dv = torch.einsum("bcp,bkp->bkc", gv, attn.to(BF16).float())
+    return dq, dk, dv
+
+
+def ct_attention_cm_bwd_reference_bf16(q_cm, k, v, wz, g_cm,
+                                       divide: bool = False,
+                                       round_dq: bool = True):
+    """The plain bf16 blockwise backward (``_bwd_kernel_cm`` on bf16
+    operands; with ``divide`` the row-major ``_bwd_kernel``'s weights,
+    e / Σe where the class-major kernel takes e·(1/Σe)) → (dq bf16
+    [B,C,P], dk, dv f32 [B,K,C], dwz f32 [C]): the weights normalised by
+    the sum of the unrounded exponentials, then rounded to bf16 (af); g·wz
+    rounded to bf16; colsum = Σ_K af·dattn; ds = bf16(af·(dattn −
+    colsum)); dwz = Σ g·delta with delta = Σ_K af·v."""
+    s = torch.einsum("bkc,bcp->bkp", k.float(), q_cm.float())
+    e = torch.exp(s - s.amax(dim=1, keepdim=True))
+    total = e.sum(dim=1, keepdim=True)
+    attn = e / total if divide else e * (1.0 / total)
+    af = attn.to(BF16).float()
+    g = g_cm.float()
+    gv = (g * wz[None, :, None]).to(BF16).float()
+    dv = torch.einsum("bcp,bkp->bkc", gv, af)
+    dattn = torch.einsum("bkc,bcp->bkp", v.float(), gv)
+    colsum = (af * dattn).sum(dim=1, keepdim=True)
+    ds = (af * (dattn - colsum)).to(BF16).float()
+    dq = torch.einsum("bkc,bkp->bcp", k.float(), ds)
+    dk = torch.einsum("bcp,bkp->bkc", q_cm.float(), ds)
+    delta = torch.einsum("bkc,bkp->bcp", v.float(), af)
+    if round_dq:
+        dq = dq.to(BF16)
+    return dq, dk, dv, (g * delta).sum(dim=(0, 2))
+
+
+def ct_attention_bwd_reference_bf16(q, k, v, wz, g):
+    """The plain bf16 row-major blockwise backward (``_bwd_kernel`` on bf16
+    operands, as scripts/bench_ct_bwd.py's wrapper calls it) → (dq, dk, dv,
+    dwz), all float32: that wrapper declares dq float32, so it is not
+    rounded."""
+    dq, dk, dv, dwz = ct_attention_cm_bwd_reference_bf16(
+        q.transpose(1, 2), k, v, wz, g.transpose(1, 2), divide=True,
+        round_dq=False)
+    return dq.transpose(1, 2), dk, dv, dwz
+
+
+def _bf16_only(fn, t):
+    if t.dtype != BF16:
+        raise TypeError(f"{fn}: {t.dtype}; this is the bfloat16 kernel")
+
+
+def ct_attention_cm_stats_bf16(q_cm, k, v, base_cm, wz):
+    """The bf16 training forward → (out bf16, delta bf16 [B,C,P], m, z
+    float32 [B,1,P]). CUDA tensors go to the kernel (the bf16 walk with a
+    statistics epilogue), counted on ``ct_attention_cm_stats_bf16
+    .launches``; CPU tensors to the plain version."""
+    _check(q_cm, k, v, base_cm, wz, "ct_attention_cm_stats_bf16")
+    _bf16_only("ct_attention_cm_stats_bf16", q_cm)
+    if _device("ct_attention_cm_stats_bf16", q_cm) == "cpu":
+        return ct_attention_cm_stats_reference_bf16(q_cm, k, v, base_cm, wz)
+    b, c, p = q_cm.shape
+    kk = k.shape[1]
+    out = torch.empty_like(base_cm)
+    delta = torch.empty_like(base_cm)
+    m = wz.new_empty((b, 1, p))
+    z = wz.new_empty((b, 1, p))
+    scratch = q_cm.new_empty((2, b, kk, _padded_classes(c)))
+    kernels.launch(ct_attention_cm_stats_bf16, "ct_attention_cm_stats_bf16",
+                   (q_cm, k, v, base_cm, wz, out, delta, m, z, scratch),
+                   (b, c, p, kk))
+    return out, delta, m, z
+
+
+def _bwd_scratch_bf16(q, b, c, p, kk):
+    """The bf16 backwards' scratch: the padded k and v [2, B, K, CP] and q
+    and g·wz [2, B, CP, Pp] in bf16, the statistics [3, B, Pp] in float32
+    (CP the walk's padded classes, Pp = P rounded up to 64 anchors)."""
+    cp = _padded_classes(c)
+    pp = -(-p // ANCHORS_PER_BLOCK) * ANCHORS_PER_BLOCK
+    return (q.new_empty((2, b, kk, cp)), q.new_empty((2, b, cp, pp)),
+            q.new_empty((3, b, pp), dtype=torch.float32))
+
+
+def ct_attention_cm_bwd_flash_bf16(q_cm, k, v, wz, g_cm, m, z, colsum):
+    """The bf16 flash backward → (dq bf16 [B,C,P], dk, dv float32
+    [B,K,C]) from the saved m and z and colsum = Σ_c g·delta·wz, all
+    float32 [B,1,P]. CUDA tensors go to the kernels, counted on
+    ``ct_attention_cm_bwd_flash_bf16.launches``; CPU tensors to the plain
+    version."""
+    _check(q_cm, k, v, g_cm, wz, "ct_attention_cm_bwd_flash_bf16")
+    _bf16_only("ct_attention_cm_bwd_flash_bf16", q_cm)
+    _check_stats("ct_attention_cm_bwd_flash_bf16", q_cm, m, z, colsum)
+    if _device("ct_attention_cm_bwd_flash_bf16", q_cm) == "cpu":
+        return ct_attention_cm_bwd_flash_reference_bf16(q_cm, k, v, wz, g_cm,
+                                                        m, z, colsum)
+    b, c, p = q_cm.shape
+    kk = k.shape[1]
+    dq = torch.empty_like(q_cm)
+    dk = wz.new_empty((b, kk, c))
+    dv = wz.new_empty((b, kk, c))
+    kernels.launch(ct_attention_cm_bwd_flash_bf16,
+                   "ct_attention_cm_bwd_flash_bf16",
+                   (q_cm, k, v, wz, g_cm, m, z, colsum, dq, dk, dv,
+                    *_bwd_scratch_bf16(q_cm, b, c, p, kk)), (b, c, p, kk))
+    return dq, dk, dv
+
+
+def _blockwise_bwd_bf16(wrapper, q, k, v, wz, g, row_major: bool):
+    """Launch a bf16 blockwise backward (class-major or row-major q, g) →
+    (dq like q, bf16 class-major and float32 row-major, dk, dv float32
+    [B,K,C], dwz [C]), with its scratch."""
+    b, p, c = q.shape if row_major else (q.shape[0], q.shape[2], q.shape[1])
+    kk = k.shape[1]
+    dq = torch.empty_like(q, dtype=torch.float32 if row_major else BF16)
+    dk = wz.new_empty((b, kk, c))
+    dv = wz.new_empty((b, kk, c))
+    dwz = wz.new_empty((c,))
+    kvp, qg, stats = _bwd_scratch_bf16(q, b, c, p, kk)
+    part = wz.new_empty((b * stats.shape[2] // ANCHORS_PER_BLOCK, c))
+    kernels.launch(wrapper, wrapper.__name__,
+                   (q, k, v, wz, g, dq, dk, dv, dwz, kvp, qg, stats, part),
+                   (b, c, p, kk))
+    return dq, dk, dv, dwz
+
+
+def ct_attention_cm_bwd_bf16(q_cm, k, v, wz, g_cm):
+    """The bf16 blockwise backward (``CT_ATTENTION_FLASH=0``) → (dq bf16
+    [B,C,P], dk, dv float32 [B,K,C], dwz float32 [C]) from q, k, v, wz
+    and g alone. CUDA tensors go to the kernels, counted on
+    ``ct_attention_cm_bwd_bf16.launches``; CPU tensors to the plain
+    version."""
+    _check(q_cm, k, v, g_cm, wz, "ct_attention_cm_bwd_bf16")
+    _bf16_only("ct_attention_cm_bwd_bf16", q_cm)
+    if _device("ct_attention_cm_bwd_bf16", q_cm) == "cpu":
+        return ct_attention_cm_bwd_reference_bf16(q_cm, k, v, wz, g_cm)
+    return _blockwise_bwd_bf16(ct_attention_cm_bwd_bf16, q_cm, k, v, wz,
+                               g_cm, False)
+
+
+def ct_attention_bwd_bf16(q, k, v, wz, g):
+    """The bf16 row-major blockwise backward (the JAX ``_bwd_kernel`` that
+    scripts/bench_ct_bwd.py feeds bf16) → (dq [B,P,C], dk, dv, dwz), all
+    float32 as that bench's wrapper emits them. CUDA tensors go to the
+    kernels, counted on
+    ``ct_attention_bwd_bf16.launches``; CPU tensors to the plain
+    version."""
+    _check(q, k, v, g, wz, "ct_attention_bwd_bf16", row_major=True)
+    _bf16_only("ct_attention_bwd_bf16", q)
+    if _device("ct_attention_bwd_bf16", q) == "cpu":
+        return ct_attention_bwd_reference_bf16(q, k, v, wz, g)
+    return _blockwise_bwd_bf16(ct_attention_bwd_bf16, q, k, v, wz, g, True)
+
+
 for _fn in (ct_attention_cm_stats, ct_attention_cm_bwd_flash,
-            ct_attention_cm_bwd):
+            ct_attention_cm_bwd, ct_attention_cm_stats_bf16,
+            ct_attention_cm_bwd_flash_bf16, ct_attention_cm_bwd_bf16,
+            ct_attention_bwd_bf16):
     _fn.launches = 0
 
 
@@ -351,14 +536,15 @@ class _CTAttentionCM(torch.autograd.Function):
         q_cm, k, v, wz, delta, m, z = ctx.saved_tensors
         g_cm = g_cm.contiguous()
         # dwz and the softmax-Jacobian term come from the saved delta, as
-        # the JAX package computes them outside its kernel
-        gd = g_cm * delta
+        # the JAX package computes them outside its kernel, in float32
+        gd = g_cm.float() * delta.float()
         dwz = gd.sum(dim=(0, 2))
         colsum = (gd * wz[None, :, None]).sum(dim=1, keepdim=True)
         dq, dk, dv = ct_attention_cm_bwd_flash(q_cm, k, v, wz, g_cm, m, z,
                                                colsum)
-        # d/d(base) of base + delta·wz is the upstream gradient itself
-        return dq, dk, dv, g_cm, dwz
+        # d/d(base) of base + delta·wz is the upstream gradient itself; dk
+        # and dv (f32 sums) in k's and v's type, as ``_bwd_cm`` casts them
+        return dq, dk.to(k.dtype), dv.to(v.dtype), g_cm, dwz
 
 
 class _CTAttentionCMBlockwise(torch.autograd.Function):
@@ -377,7 +563,7 @@ class _CTAttentionCMBlockwise(torch.autograd.Function):
         q_cm, k, v, wz = ctx.saved_tensors
         g_cm = g_cm.contiguous()
         dq, dk, dv, dwz = ct_attention_cm_bwd(q_cm, k, v, wz, g_cm)
-        return dq, dk, dv, g_cm, dwz
+        return dq, dk.to(k.dtype), dv.to(v.dtype), g_cm, dwz
 
 
 def _cm_forward(q_cm, k, v, base_cm, wz):
@@ -403,19 +589,18 @@ def ct_attention_cm(
     wz: torch.Tensor,       # [C]
     flash: bool = True,
 ) -> torch.Tensor:
-    """Class-major CT attention → [B, C, P] in q's type, float32
-    differentiable.
+    """Class-major CT attention → [B, C, P] in q's type, differentiable
+    in float32 and in bf16.
 
     With a gradient to take and ``flash`` it runs the stats forward, whose
     backward is the flash kernel; with ``flash=False`` (the reference's
     ``CT_ATTENTION_FLASH=0``) the eval forward, whose backward is the
     blockwise kernel. Without a gradient CUDA tensors go to the eval
     kernel, whose launches ``ct_attention_cm.launches`` counts, and CPU
-    tensors to the plain version. bf16 inputs go to
-    ``ct_attention_cm_bf16`` (forward only).
+    tensors to the plain version. bf16 inputs go to the bf16 kernels of
+    the same roles (``ct_attention_cm_bf16`` and the ``*_bf16`` training
+    kernels).
     """
-    if q_cm.dtype == BF16:
-        return ct_attention_cm_bf16(q_cm, k, v, base_cm, wz)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q_cm, k, v, base_cm, wz)):
         fn = _CTAttentionCM if flash else _CTAttentionCMBlockwise
@@ -458,11 +643,10 @@ def ct_attention_reference_bf16(q, k, v, base, wz, exp_bf16=False):
 
 
 def ct_attention_bf16(q, k, v, base, wz) -> torch.Tensor:
-    """The bf16 row-major forward → [B, P, C] bf16; forward only. CUDA
+    """The bf16 row-major forward → [B, P, C] bf16. CUDA
     tensors go to the kernel, counted on ``ct_attention_bf16.launches``;
     CPU tensors to the plain version."""
     _check(q, k, v, base, wz, "ct_attention_bf16", row_major=True)
-    _no_grad_bf16("ct_attention_bf16", q, k, v, base, wz)
     if _device("ct_attention_bf16", q) == "cpu":
         return ct_attention_reference_bf16(q, k, v, base, wz)
     return _launch_bf16(ct_attention_bf16, q, k, v, base, wz, True)
@@ -490,9 +674,10 @@ def ct_attention_bwd(q, k, v, wz, g):
     """Row-major blockwise backward → (dq [B,P,C], dk [B,K,C], dv [B,K,C],
     dwz [C]): the port of ``_bwd_kernel`` and ``ct_attention_bwd_pallas``
     in one kernel, with no transposes; the kernel on CUDA tensors, else the
-    plain version."""
+    plain version. bf16 inputs go to ``ct_attention_bwd_bf16``."""
     _check(q, k, v, g, wz, "ct_attention_bwd", row_major=True)
-    _f32_only("ct_attention_bwd", q)
+    if q.dtype == BF16:
+        return ct_attention_bwd_bf16(q, k, v, wz, g)
     if _device("ct_attention_bwd", q) == "cpu":
         return ct_attention_bwd_reference(q, k, v, wz, g)
     return _blockwise_bwd(ct_attention_bwd, q, k, v, wz, g, True)
@@ -515,7 +700,7 @@ class _CTAttention(torch.autograd.Function):
         q, k, v, wz = ctx.saved_tensors
         g = g.contiguous()
         dq, dk, dv, dwz = ct_attention_bwd(q, k, v, wz, g)
-        return dq, dk, dv, g, dwz
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), g, dwz
 
 
 def ct_attention(
@@ -525,13 +710,11 @@ def ct_attention(
     base: torch.Tensor,  # [B, P, C]
     wz: torch.Tensor,    # [C]
 ) -> torch.Tensor:
-    """Row-major CT attention → [B, P, C] float32, differentiable:
+    """Row-major CT attention → [B, P, C] in q's type, differentiable:
     ``base + softmax(q·kᵀ)·v·wz``. CUDA tensors go to the forward kernel,
     whose launches ``ct_attention.launches`` counts, and the gradient to the
     row-major backward kernel; CPU tensors to the plain versions. bf16
-    inputs go to ``ct_attention_bf16`` (forward only)."""
-    if q.dtype == BF16:
-        return ct_attention_bf16(q, k, v, base, wz)
+    inputs go to ``ct_attention_bf16`` and ``ct_attention_bwd_bf16``."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, base, wz)):
         return _CTAttention.apply(q, k, v, base, wz)
@@ -580,7 +763,6 @@ def ct_attention_variant_bf16(q, k, v, base, wz) -> torch.Tensor:
     on ``ct_attention_variant_bf16.launches``; CPU tensors to the plain
     version."""
     _check(q, k, v, base, wz, "ct_attention_variant_bf16", row_major=True)
-    _no_grad_bf16("ct_attention_variant_bf16", q, k, v, base, wz)
     if _device("ct_attention_variant_bf16", q) == "cpu":
         return ct_attention_reference_bf16(q, k, v, base, wz, exp_bf16=True)
     return _launch_bf16(ct_attention_variant_bf16, q, k, v, base, wz, True)
@@ -632,15 +814,13 @@ def ct_attention_serving_reference_bf16(conf_cm, k, v, w_theta, b_theta, wz,
 
 def ct_attention_serving_bf16(conf_cm, k, v, w_theta, b_theta, wz,
                               obj_target, scale: float = 5.0) -> torch.Tensor:
-    """The bf16 serving head → [B, N, P] bf16; forward only. CUDA tensors
+    """The bf16 serving head → [B, N, P] bf16, forward only. CUDA tensors
     go to the kernel, counted on ``ct_attention_serving_bf16.launches``;
     CPU tensors to the plain version."""
     _check_serving(conf_cm, k, v, w_theta, b_theta, wz, obj_target,
                    "ct_attention_serving_bf16")
     if conf_cm.dtype != BF16:
         raise TypeError(f"ct_attention_serving_bf16: conf is {conf_cm.dtype}")
-    _no_grad_bf16("ct_attention_serving_bf16", conf_cm, k, v, w_theta,
-                  b_theta, wz, obj_target)
     if _device("ct_attention_serving_bf16", conf_cm) == "cpu":
         return ct_attention_serving_reference_bf16(
             conf_cm, k, v, w_theta, b_theta, wz, obj_target, scale)

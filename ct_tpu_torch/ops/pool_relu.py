@@ -11,7 +11,12 @@ bit for bit (max_pool2d keeps the first maximum of a window).
 ``pool2x2_relu_fwd`` and ``pool2x2_relu_bwd`` launch the hand-written CUDA
 kernels (``csrc/pool2x2_relu.cu``) for CUDA tensors, counting launches in
 ``.launches``, and take their plain versions for CPU tensors.
-``pool2x2_relu`` is the differentiable entry.
+``pool2x2_relu`` is the differentiable entry. bfloat16 tensors (the
+``--bf16`` training model) go to the bf16 instantiation of the same
+kernels, counted on ``pool2x2_relu_fwd_bf16.launches`` and
+``pool2x2_relu_bwd_bf16.launches``: the max, the ReLU and the tie routing
+are exact in any type, so the result is bit for bit the plain version's,
+as the JAX kernel's bf16 pass is its XLA composition's.
 """
 
 from __future__ import annotations
@@ -47,8 +52,9 @@ def pool2x2_relu_bwd_reference(x: torch.Tensor, y: torch.Tensor,
 
 
 def _check(x: torch.Tensor, name: str = "pool2x2_relu") -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: x is {x.dtype}, the kernel takes float32")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: x is {x.dtype}, the kernel takes float32 "
+                        "or bfloat16")
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be NCHW, got {tuple(x.shape)}")
     n, c, h, w = x.shape
@@ -59,39 +65,74 @@ def _check(x: torch.Tensor, name: str = "pool2x2_relu") -> None:
         raise ValueError(f"{name}: no kernel for {x.device}")
 
 
-def pool2x2_relu_fwd(x: torch.Tensor) -> torch.Tensor:
-    """relu(2×2/s2 max pool): [N, C, H, W] → [N, C, H/2, W/2] float32."""
-    _check(x, "pool2x2_relu_fwd")
-    if x.device.type == "cpu":
-        return pool2x2_relu_reference(x)
+def _launch_fwd(wrapper, x: torch.Tensor) -> torch.Tensor:
     n, c, h, w = x.shape
     y = x.new_empty((n, c, h // 2, w // 2))
-    kernels.launch(pool2x2_relu_fwd, "pool2x2_relu_fwd", (x, y),
-                   (n * c, h, w))
+    kernels.launch(wrapper, wrapper.__name__, (x, y), (n * c, h, w))
     return y
+
+
+def _launch_bwd(wrapper, x: torch.Tensor, y: torch.Tensor,
+                g: torch.Tensor) -> torch.Tensor:
+    n, c, h, w = x.shape
+    for name, t in (("y", y), ("g", g)):
+        if (tuple(t.shape) != (n, c, h // 2, w // 2)
+                or t.dtype != x.dtype or t.device != x.device):
+            raise ValueError(f"{wrapper.__name__}: {name} must be {x.dtype} "
+                             f"[{n}, {c}, {h // 2}, {w // 2}] on {x.device}")
+    if x.device.type == "cpu":
+        return pool2x2_relu_bwd_reference(x, y, g)
+    dx = torch.empty_like(x)
+    kernels.launch(wrapper, wrapper.__name__, (x, y, g, dx), (n * c, h, w))
+    return dx
+
+
+def pool2x2_relu_fwd(x: torch.Tensor) -> torch.Tensor:
+    """relu(2×2/s2 max pool): [N, C, H, W] → [N, C, H/2, W/2] in x's type;
+    bf16 x goes to ``pool2x2_relu_fwd_bf16``."""
+    _check(x, "pool2x2_relu_fwd")
+    if x.dtype == torch.bfloat16:
+        return pool2x2_relu_fwd_bf16(x)
+    if x.device.type == "cpu":
+        return pool2x2_relu_reference(x)
+    return _launch_fwd(pool2x2_relu_fwd, x)
 
 
 def pool2x2_relu_bwd(x: torch.Tensor, y: torch.Tensor,
                      g: torch.Tensor) -> torch.Tensor:
     """Gradient of ``pool2x2_relu_fwd`` at x, from its output y and the
-    upstream gradient g → [N, C, H, W] float32."""
+    upstream gradient g, both in x's type → [N, C, H, W] in x's type; bf16
+    goes to ``pool2x2_relu_bwd_bf16``."""
     _check(x, "pool2x2_relu_bwd")
-    n, c, h, w = x.shape
-    for name, t in (("y", y), ("g", g)):
-        if (tuple(t.shape) != (n, c, h // 2, w // 2)
-                or t.dtype != torch.float32 or t.device != x.device):
-            raise ValueError(f"pool2x2_relu_bwd: {name} must be float32 "
-                             f"[{n}, {c}, {h // 2}, {w // 2}] on {x.device}")
+    if x.dtype == torch.bfloat16:
+        return pool2x2_relu_bwd_bf16(x, y, g)
+    return _launch_bwd(pool2x2_relu_bwd, x, y, g)
+
+
+def pool2x2_relu_fwd_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``pool2x2_relu_fwd`` on bf16 x: the bf16 kernel on CUDA tensors,
+    counted on ``pool2x2_relu_fwd_bf16.launches``."""
+    _check(x, "pool2x2_relu_fwd_bf16")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"pool2x2_relu_fwd_bf16: x is {x.dtype}")
     if x.device.type == "cpu":
-        return pool2x2_relu_bwd_reference(x, y, g)
-    dx = torch.empty_like(x)
-    kernels.launch(pool2x2_relu_bwd, "pool2x2_relu_bwd", (x, y, g, dx),
-                   (n * c, h, w))
-    return dx
+        return pool2x2_relu_reference(x)
+    return _launch_fwd(pool2x2_relu_fwd_bf16, x)
 
 
-pool2x2_relu_fwd.launches = 0
-pool2x2_relu_bwd.launches = 0
+def pool2x2_relu_bwd_bf16(x: torch.Tensor, y: torch.Tensor,
+                          g: torch.Tensor) -> torch.Tensor:
+    """``pool2x2_relu_bwd`` on bf16 x, y and g: the bf16 kernel on CUDA
+    tensors, counted on ``pool2x2_relu_bwd_bf16.launches``."""
+    _check(x, "pool2x2_relu_bwd_bf16")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"pool2x2_relu_bwd_bf16: x is {x.dtype}")
+    return _launch_bwd(pool2x2_relu_bwd_bf16, x, y, g)
+
+
+for _fn in (pool2x2_relu_fwd, pool2x2_relu_bwd, pool2x2_relu_fwd_bf16,
+            pool2x2_relu_bwd_bf16):
+    _fn.launches = 0
 
 
 class _Pool2x2ReLU(torch.autograd.Function):
@@ -108,9 +149,9 @@ class _Pool2x2ReLU(torch.autograd.Function):
 
 
 def pool2x2_relu(x: torch.Tensor) -> torch.Tensor:
-    """relu(max_pool2d(x, 2, 2)) on NCHW float32, differentiable: the
-    forward and backward kernels on the card, their plain versions on the
-    CPU."""
+    """relu(max_pool2d(x, 2, 2)) on NCHW float32 or bfloat16,
+    differentiable: the forward and backward kernels on the card, their
+    plain versions on the CPU."""
     if torch.is_grad_enabled() and x.requires_grad:
         return _Pool2x2ReLU.apply(x)
     return pool2x2_relu_fwd(x)

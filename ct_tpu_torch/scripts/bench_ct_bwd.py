@@ -21,8 +21,18 @@ and its ratio to the largest entry):
 
 Then each backward against its plain version at a batch whose [B, K, P]
 plain tensors fit beside the bench's (``--plain-batch``, default 2); the
-line names the batch. Inputs are seeded normal × 0.3 in float32. Run it
-with nothing else on the card.
+line names the batch. Inputs are seeded normal × 0.3, q, k, v and g in
+bfloat16 and wz in float32, as the JAX bench feeds them
+(``scripts/bench_ct_bwd.py:77-78``): the port's bf16 kernels run
+(``ct_attention_bwd_bf16``, ``ct_attention_cm_bwd_bf16``,
+``ct_attention_cm_stats_bf16``, ``ct_attention_cm_bwd_flash_bf16``;
+the plain check against their plain bf16 versions). In bf16 the two
+blockwise layouts differ in their weights' last bit (row-major divides by
+the sum, class-major multiplies by its inverse, as the JAX kernels do) and
+the flash backward rounds at other points than the blockwise one, so those
+two cross-errors are readings of that. ``--dtype float32`` runs the
+float32 kernels on the same values in float32. Run it with nothing else on
+the card.
 """
 
 from __future__ import annotations
@@ -34,16 +44,25 @@ import torch
 
 from ct_tpu_torch import resolve_device
 from ct_tpu_torch.ops.ct_attention import (
-    ct_attention_bwd, ct_attention_bwd_reference, ct_attention_cm,
-    ct_attention_cm_bwd, ct_attention_cm_bwd_flash,
-    ct_attention_cm_bwd_flash_reference, ct_attention_cm_bwd_reference,
-    ct_attention_cm_stats,
+    ct_attention_bwd, ct_attention_bwd_reference,
+    ct_attention_bwd_reference_bf16, ct_attention_cm, ct_attention_cm_bwd,
+    ct_attention_cm_bwd_flash, ct_attention_cm_bwd_flash_reference,
+    ct_attention_cm_bwd_flash_reference_bf16, ct_attention_cm_bwd_reference,
+    ct_attention_cm_bwd_reference_bf16, ct_attention_cm_stats,
 )
 from ct_tpu_torch.scripts import device_name
 from ct_tpu_torch.utils.timing import time_calls
 
 SIZES = {"300": (64, 11620, 1858, 60), "512": (16, 32756, 4964, 60)}
 GRADS = ("dq", "dk", "dv", "dwz")
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the plain versions of (row-major, class-major, flash) by input type
+PLAIN = {torch.float32: (ct_attention_bwd_reference,
+                         ct_attention_cm_bwd_reference,
+                         ct_attention_cm_bwd_flash_reference),
+         torch.bfloat16: (ct_attention_bwd_reference_bf16,
+                          ct_attention_cm_bwd_reference_bf16,
+                          ct_attention_cm_bwd_flash_reference_bf16)}
 
 
 def parse_args(argv=None):
@@ -57,27 +76,31 @@ def parse_args(argv=None):
     ap.add_argument("--classes", type=int, default=None)
     ap.add_argument("--plain-batch", type=int, default=2,
                     help="batch of the check against the plain versions")
+    ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
+                    help="type of q, k, v and g (wz is float32)")
     return ap.parse_args(argv)
 
 
 def flash_bwd(q_cm, k, v, wz, g_cm, delta, m, z):
     """The flash backward as the autograd Function runs it: dwz and colsum
-    from the saved delta, then the kernel → (dq, dk, dv, dwz)."""
-    gd = g_cm * delta
+    from the saved delta in float32, then the kernel → (dq, dk, dv,
+    dwz)."""
+    gd = g_cm.float() * delta.float()
     colsum = (gd * wz[None, :, None]).sum(dim=1, keepdim=True)
     return (*ct_attention_cm_bwd_flash(q_cm, k, v, wz, g_cm, m, z, colsum),
             gd.sum(dim=(0, 2)))
 
 
 def cross_errors(label, a, b) -> dict:
-    """max |a - b| per gradient and its ratio to max |a|, printed."""
+    """max |a - b| per gradient, its ratio to max |a| and max |a| itself,
+    printed."""
     out = {}
     for name, x, y in zip(GRADS, a, b):
-        err = (x - y).abs().max().item()
+        err = (x.float() - y.float()).abs().max().item()
         ref = x.abs().max().item() or 1.0
         print(f"  {label}max|d{name[1:]}| = {err:.3e}  (rel {err/ref:.2e})",
               flush=True)
-        out[name] = {"max_abs_err": err, "rel": err / ref}
+        out[name] = {"max_abs_err": err, "rel": err / ref, "max_abs": ref}
     return out
 
 
@@ -91,11 +114,12 @@ def main(argv=None) -> dict:
     p = args.anchors or p
     kk = args.keys or kk
     c = args.classes or c
+    dtype = DTYPES[args.dtype]
     rng = np.random.default_rng(0)
 
     def mk(*shape):
         return torch.from_numpy(
-            rng.standard_normal(shape, np.float32) * 0.3).to(device)
+            rng.standard_normal(shape, np.float32) * 0.3).to(device, dtype)
 
     q, k, v, g = mk(b, p, c), mk(b, kk, c), mk(b, kk, c), mk(b, p, c)
     wz = torch.from_numpy(rng.standard_normal(c, np.float32)).to(device)
@@ -104,7 +128,8 @@ def main(argv=None) -> dict:
     base_cm = torch.zeros_like(q_cm)
     flops = 10 * b * p * kk * c
     res = {"size": args.size, "batch": b, "anchors": p, "keys": kk,
-           "classes": c, "device": device_name(device)}
+           "classes": c, "dtype": args.dtype, "device": device_name(device)}
+    rm_plain, cm_plain, flash_plain = PLAIN[dtype]
 
     def line(key, label, t, tflops=True):
         rate = f" ({flops/t/1e12:.1f} TF/s)" if tflops else ""
@@ -146,15 +171,13 @@ def main(argv=None) -> dict:
         rm, cm = ([x[:n] if x.dim() == 3 else x for x in xs]
                   for xs in (rm, cm))
         res["rowmajor_vs_plain"] = cross_errors(
-            "row-major vs plain ", ct_attention_bwd_reference(*rm),
-            ct_attention_bwd(*rm))
+            "row-major vs plain ", rm_plain(*rm), ct_attention_bwd(*rm))
         res["classmajor_vs_plain"] = cross_errors(
-            "class-major vs plain ", ct_attention_cm_bwd_reference(*cm),
-            ct_attention_cm_bwd(*cm))
+            "class-major vs plain ", cm_plain(*cm), ct_attention_cm_bwd(*cm))
         _, delta, m, z = ct_attention_cm_stats(*cm[:3], base_cm[:n], wz)
-        gd = cm[4] * delta
+        gd = cm[4].float() * delta.float()
         colsum = (gd * wz[None, :, None]).sum(dim=1, keepdim=True)
-        plain = ct_attention_cm_bwd_flash_reference(*cm, m, z, colsum)
+        plain = flash_plain(*cm, m, z, colsum)
         res["flash_vs_plain"] = cross_errors(
             "flash vs plain ", (*plain, gd.sum(dim=(0, 2))),
             flash_bwd(*cm, delta, m, z))

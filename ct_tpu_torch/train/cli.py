@@ -2,7 +2,7 @@
 
     python -m ct_tpu_torch.train -d VOC -p 2 --setting incre --split 1 \\
         --shot 5 --mixup --load-file weights/phase1.pth \\
-        --save-folder weights/ [--device-augment --canvas 384] \\
+        --save-folder weights/ [--device-augment --canvas 384] [--bf16] \\
         [--profile-dir trace/] [--device cuda|cpu]
 
 The same phase/setting/method state machine and loop as ``train.py``: the
@@ -20,6 +20,12 @@ batch-level mixup in place of the dataset's) runs batched on the device
 (``data/augment_device.py``), from generators seeded per iteration.
 ``init_reweight`` then sees augmented, never-mixed batches from a
 generator of its own.
+
+``--bf16``: the model computes in bfloat16 as ``train.py --bf16``'s does
+(``build_net(..., dtype=torch.bfloat16)``: float32 parameters, gradients
+and SGD; bf16 convolutions, BN outputs, CT projections and CT attention
+kernels), and the device augmentation emits bf16 images (its init batches
+too), which mixup blends in float32 and keeps in bf16.
 
 Metrics: the losses stay on the device and are fetched together at each
 write point (after 5 iterations, every 20 and at the last), where the
@@ -50,9 +56,6 @@ logger = logging.getLogger("ct_tpu_torch.train")
 
 # flag → (is it set?, the ROADMAP item that will port it)
 UNPORTED = (
-    ("--bf16", lambda a: a.bf16,
-     "Queue 1 item 4 (bf16 training, the next slice: bf16 kernels of rows "
-     "2, 3, 4 and 7; the eval CLI runs --bf16)"),
     ("--orbax", lambda a: a.orbax, "Queue 1 item 8 (async checkpoints)"),
     ("--pallas-ct", lambda a: a.pallas_ct is not None,
      "none: the port always runs its CT kernels on the card"),
@@ -128,8 +131,9 @@ def parse_args(argv=None):
                              "with --mixup, mixup is batch-level there)")
     parser.add_argument("--canvas", type=int, default=384,
                         help="Working-canvas size for --device-augment")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 compute (float32 parameters)")
     # flags of train.py that the port does not run yet: each raises
-    parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--pallas-ct", choices=["auto", "on", "off"],
                         default=None)
     parser.add_argument("--orbax", action="store_true")
@@ -171,15 +175,19 @@ def is_write_point(iteration: int, start_iter: int, max_iter: int) -> bool:
                                            or iteration == max_iter - 1)
 
 
-def device_augmented(gen, seed: int, batch, out_size: int) -> dict:
+def device_augmented(gen, seed: int, batch, out_size: int,
+                     out_dtype=None) -> dict:
     """A batch on the device, augmented there from ``gen`` seeded with
-    ``seed``, its weights carried over."""
+    ``seed`` (images in ``out_dtype``, the model's compute type as
+    train.py's ``out_dtype``; float32 by default), its weights carried
+    over."""
     from ct_tpu_torch.data.augment_device import augment_batch
 
     gen.manual_seed(seed)
     return dict(augment_batch(gen, batch["image"], batch["boxes"],
                               batch["labels"], batch["valid"],
-                              out_size=out_size), weights=batch["weights"])
+                              out_size=out_size, out_dtype=out_dtype),
+                weights=batch["weights"])
 
 
 class AugmentedBatches:
@@ -188,12 +196,13 @@ class AugmentedBatches:
     stream of their own, never mixed (the reference initialises before it
     turns mixup on)."""
 
-    def __init__(self, loader, device, out_size: int):
+    def __init__(self, loader, device, out_size: int, out_dtype=None):
         import torch
 
         self.loader = loader
         self.device = device
         self.out_size = out_size
+        self.out_dtype = out_dtype
         self.gen = torch.Generator(device=device)
         self.i = 0
 
@@ -203,7 +212,7 @@ class AugmentedBatches:
         self.i += 1
         return device_augmented(self.gen, seed_of(REWEIGHT_STREAM, self.i),
                                 batch_to(self.loader.next(), self.device),
-                                self.out_size)
+                                self.out_size, self.out_dtype)
 
 
 def main(argv=None) -> dict:
@@ -248,8 +257,13 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
+        # float32 products in float32, and bf16 ones summed in float32
+        # (preferred_element_type=float32 in the JAX package)
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_tf32 = False
+        matmul.allow_bf16_reduced_precision_reduction = False
         torch.backends.cudnn.allow_tf32 = False
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
     img_dim = 512 if args.size == "512" else 300
     task = resolve_task(args.phase, args.setting, args.method, args.dataset)
     priors = prior_boxes(get_config(args.dataset, img_dim), device)
@@ -273,8 +287,8 @@ def main(argv=None) -> dict:
     logger.info("CT attention backward: %s",
                 "flash" if ct_flash else "blockwise (CT_ATTENTION_FLASH=0)")
     torch.manual_seed(0)
-    model = build_net(task, img_dim, device=device,
-                      ct_flash=ct_flash).train()
+    model = build_net(task, img_dim, device=device, ct_flash=ct_flash,
+                      dtype=dtype).train()
     optimizer, scheduler = build_optimizer(model, task, solver_cfg)
     ck = Checkpointer(args.save_folder)
     last = ck.resume_or_load(
@@ -318,7 +332,7 @@ def main(argv=None) -> dict:
 
     try:
         if task.has_ct_head:
-            rw_loader = (AugmentedBatches(loader, device, img_dim)
+            rw_loader = (AugmentedBatches(loader, device, img_dim, dtype)
                          if args.device_augment else loader)
             init_reweight(model, rw_loader, priors, task, args.init_iter)
             if args.mixup and args.device_augment:
@@ -355,7 +369,7 @@ def main(argv=None) -> dict:
                 with annotate("augment"):
                     batch = device_augmented(
                         aug_gen, seed_of(AUGMENT_STREAM, iteration), batch,
-                        img_dim)
+                        img_dim, dtype)
                     if device_mixup:
                         batch = mixup_batch(
                             np.random.default_rng(

@@ -17,8 +17,8 @@ between 2⁻⁸·|x| and 2⁻⁷·|x|).
   variant) on the bench's bf16 inputs, against JAX's row-major kernel and
   the bench's ``make_variant``, in the same band.
 * What the bf16 path refuses: mixed types, C = 64 (the walk's ones
-  column), a call that needs a gradient and a bf16 model in train mode
-  (bf16 training is the next slice).
+  column), with a gradient to take too (bf16 training runs,
+  tests/test_torch_bf16_train.py).
 * The size-64 model (phase 2 incre ``ours``, seeded weights through
   ``from_jax_variables``), the port's bf16 forward vs JAX's ``build_net(...,
   dtype=jnp.bfloat16)`` with its Pallas CT kernel: loc, conf and obj in
@@ -190,6 +190,9 @@ def test_rowmajor_and_bench_variant_plain_bf16_match_jax(record_property):
 
 
 def test_bf16_refuses_mixed_types_gradients_and_training():
+    """The bf16 path's refusals: mixed types and C = 64 (the walk's ones
+    column). A gradient and a bf16 model in train mode are no longer
+    refused: bf16 training runs (tests/test_torch_bf16_train.py)."""
     rng = np.random.default_rng(3)
     mk = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(BF16)
@@ -203,13 +206,11 @@ def test_bf16_refuses_mixed_types_gradients_and_training():
         w = torch.zeros(2, 64, 40, dtype=BF16)
         kw = torch.zeros(2, 9, 64, dtype=BF16)
         ct_attention_cm(w, kw, kw, w, torch.zeros(64))
-    # forwards only: a call that needs a gradient names the next slice
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ct_attention_cm(q.requires_grad_(), k, v, base, wz)
-    net = build_net(resolve_task(2, "incre", "ours", "VOC"), 64,
-                    device="cpu", dtype=BF16).train()
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        net(torch.zeros(1, 3, 64, 64))
+    # with a gradient to take, the training kernels refuse the same
+    with pytest.raises(ValueError, match="63 classes"):
+        ct_attention_cm(w.requires_grad_(), kw, kw, w, torch.zeros(64))
+    with pytest.raises(TypeError, match="bfloat16"):
+        ct_attention_cm(q.requires_grad_(), k.float(), v, base, wz)
 
 
 @pytest.fixture(scope="module")

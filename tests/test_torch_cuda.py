@@ -51,7 +51,18 @@ f32 order and the output is rounded to bf16, so a value at a rounding
 boundary moves by a step), at the eval shapes and at the edges of the
 walk's tiles (P = 1, 63, 64, 65, 1001; K = 1, 31, 32, 33, 97; C = 1, 7, 15,
 16, 17, 60, 63), the same bits twice, one launch counted a call; and
-they refuse C = 64, mixed types and a call that needs a gradient.
+they refuse C = 64 and mixed types; a call that needs a gradient runs the
+bf16 training forward.
+
+The bfloat16 training kernels (``train.py --bf16``: rows 2, 3, 4, 5's
+backward and 7): the stats forward, the flash, blockwise and row-major
+backwards against their plain bf16 versions at the same edges and over
+4,964 keys, each output within 1e-4 of its mean |entry| in the mean and
+one bf16 step (the forward's outputs) or 1e-2 (the backward's sums) of its
+largest in the max, the same bits twice; the autograd paths run their kernels once each;
+the bf16 pool bit for bit against torch autograd; the size-64 bf16 model's
+gradients on the card against the CPU's by the bf16 effect; the
+augmentation's bf16 images on the card against the CPU's.
 
 The device augmentation (``data/augment_device.py``), drawn on the card,
 applied on the card and on the CPU from the same parameters: images within
@@ -75,10 +86,14 @@ from ct_tpu_torch.config import resolve_task
 from ct_tpu_torch.models.rfbnet import build_net
 from ct_tpu_torch.ops.bias_relu import bias_relu_bwd, bias_relu_bwd_reference
 from ct_tpu_torch.ops.ct_attention import (
-    bf16_step, ct_attention_bf16, ct_attention_cm_bf16,
-    ct_attention_reference_bf16, ct_attention_reference_cm_bf16,
-    ct_attention_serving_bf16, ct_attention_serving_reference_bf16,
-    ct_attention_variant_bf16,
+    bf16_step, ct_attention_bf16, ct_attention_bwd_bf16,
+    ct_attention_bwd_reference_bf16, ct_attention_cm_bf16,
+    ct_attention_cm_bwd_bf16, ct_attention_cm_bwd_flash_bf16,
+    ct_attention_cm_bwd_flash_reference_bf16,
+    ct_attention_cm_bwd_reference_bf16, ct_attention_cm_stats_bf16,
+    ct_attention_cm_stats_reference_bf16, ct_attention_reference_bf16,
+    ct_attention_reference_cm_bf16, ct_attention_serving_bf16,
+    ct_attention_serving_reference_bf16, ct_attention_variant_bf16,
 )
 from ct_tpu_torch.ops.ct_attention import (
     ct_attention, ct_attention_bwd, ct_attention_bwd_reference,
@@ -91,7 +106,8 @@ from ct_tpu_torch.ops.ct_attention import (
 )
 from ct_tpu_torch.ops.nms import batched_nms, nms_mask, nms_mask_reference
 from ct_tpu_torch.ops.pool_relu import (
-    pool2x2_relu, pool2x2_relu_bwd, pool2x2_relu_fwd,
+    pool2x2_relu, pool2x2_relu_bwd, pool2x2_relu_bwd_bf16, pool2x2_relu_fwd,
+    pool2x2_relu_fwd_bf16,
 )
 
 pytestmark = pytest.mark.cuda
@@ -753,5 +769,194 @@ def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ct_attention_cm(q, kk, v, base, wz.to(torch.bfloat16))
     with pytest.raises(TypeError, match="bfloat16"):
         ct_attention_cm(q, kk.float(), v, base, wz)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ct_attention_cm(q.requires_grad_(), kk, v, base, wz)
+    # a call that needs a gradient runs the bf16 training forward
+    before = ct_attention_cm_stats_bf16.launches
+    out = ct_attention_cm(q.requires_grad_(), kk, v, base, wz)
+    assert out.dtype == torch.bfloat16
+    assert ct_attention_cm_stats_bf16.launches == before + 1
+
+
+# --- bfloat16 training kernels ----------------------------------------------
+
+# the bands of chip_smoke.py's bf16 training cases: each output within
+# 1e-4 of its mean |entry| in the mean (flips at bf16 rounding boundaries
+# move it by at most 5e-6, a wrong rounding point by 1.4e-3 or more), and in
+# the max within one bf16 step of its largest entry (the forward's out and
+# delta) or 1e-2 of it (the backward's sums dq, dk, dv, dwz)
+BF16_MEAN_TOL = 1e-4
+BF16_MAX_TOL = 1e-2
+BF16_TRAIN_SHAPES = [(2, 15, 11620, 1858), (2, 60, 11620, 1858),
+                     (1, 1, 1, 1), (2, 7, 63, 31), (1, 15, 64, 32),
+                     (2, 16, 65, 33), (1, 17, 1001, 97), (2, 60, 64, 1),
+                     (1, 63, 1001, 33), (1, 60, 4100, 4964)]
+
+
+def hold_bf16_training(outs, plains, names):
+    for n, a, r in zip(names, outs, plains):
+        a, r = a.float(), r.float()
+        d = (a - r).abs()
+        scale = r.abs().max().item()
+        tol = (bf16_step(scale) if n in ("out", "delta")
+               else BF16_MAX_TOL * scale)
+        assert d.max().item() <= tol, (n, d.max().item(), tol)
+        assert d.mean().item() <= BF16_MEAN_TOL * r.abs().mean().item() \
+            + 1e-30, (n, d.mean().item())
+
+
+def bf16_training_case(path, b, c, p, k, device):
+    """(kernel, its arguments, plain version, output names, its launch
+    counter) of one bf16 training kernel on seeded inputs."""
+    q, kk, v, base, wz = bf16_inputs(c * p + k + 9, b, c, p, k, device)
+    g = bf16_inputs(c + p + k, b, c, p, k, device)[0]
+    if path == "stats":
+        return (ct_attention_cm_stats_bf16, (q, kk, v, base, wz),
+                ct_attention_cm_stats_reference_bf16, ("out", "delta"))
+    if path == "flash":
+        _, delta, m, z = ct_attention_cm_stats_bf16(q, kk, v, base, wz)
+        gd = g.float() * delta.float()
+        colsum = (gd * wz[None, :, None]).sum(dim=1, keepdim=True)
+        return (ct_attention_cm_bwd_flash_bf16,
+                (q, kk, v, wz, g, m, z, colsum),
+                ct_attention_cm_bwd_flash_reference_bf16, ("dq", "dk", "dv"))
+    if path == "blockwise":
+        return (ct_attention_cm_bwd_bf16, (q, kk, v, wz, g),
+                ct_attention_cm_bwd_reference_bf16, ("dq", "dk", "dv", "dwz"))
+    rm = lambda t: t.mul(0.3).transpose(1, 2).contiguous()
+    return (ct_attention_bwd_bf16, (rm(q), kk.mul(0.3), v.mul(0.3), wz, rm(g)),
+            ct_attention_bwd_reference_bf16, ("dq", "dk", "dv", "dwz"))
+
+
+# the backwards at one key are left out: a softmax over one key has no
+# derivative, so dq and dk vanish in exact arithmetic and both sides hold
+# only the cancellation of dattn − colsum, rounding noise
+BF16_TRAIN_CASES = [(path, *shape) for path in ("stats", "flash",
+                                                "blockwise", "rowmajor")
+                    for shape in BF16_TRAIN_SHAPES
+                    if path == "stats" or shape[3] > 1]
+
+
+@pytest.mark.parametrize("path,b,c,p,k", BF16_TRAIN_CASES)
+def test_bf16_training_kernels_match_plain_versions(cuda, path, b, c, p, k):
+    kernel, args, plain, names = bf16_training_case(path, b, c, p, k, cuda)
+    before = kernel.launches
+    with torch.no_grad():
+        first, second = kernel(*args), kernel(*args)
+        ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    hold_bf16_training(first, ref, names)
+    if path == "stats":
+        assert (first[2] - ref[2]).abs().max().item() <= \
+            1e-5 * ref[2].abs().max().item()
+        assert (first[3] - ref[3]).abs().max().item() <= 2.0 ** -5
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_bf16_autograd_runs_the_training_kernels(cuda, flash):
+    q, kk, v, base, wz = bf16_inputs(11, 2, 60, 1001, 97, cuda)
+    g = bf16_inputs(12, 2, 60, 1001, 97, cuda)[0]
+    kernels = ((ct_attention_cm_stats_bf16, ct_attention_cm_bwd_flash_bf16)
+               if flash else (ct_attention_cm_bf16, ct_attention_cm_bwd_bf16))
+    before = [fn.launches for fn in kernels]
+    leaves = [t.clone().requires_grad_() for t in (q, kk, v, base, wz)]
+    out = ct_attention_cm(*leaves, flash=flash)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in kernels] == [n + 1 for n in before]
+    assert [t.dtype for t in grads] == [torch.bfloat16] * 4 + [torch.float32]
+    assert torch.equal(grads[3], g)
+    # the row-major layout, on its backward kernel
+    rm = lambda t: t.transpose(1, 2).contiguous().requires_grad_()
+    before = ct_attention_bwd_bf16.launches
+    leaves = [rm(q), kk.clone().requires_grad_(), v.clone().requires_grad_(),
+              rm(base), wz.clone().requires_grad_()]
+    dq = torch.autograd.grad(ct_attention(*leaves), leaves[0],
+                             g.transpose(1, 2).contiguous())[0]
+    assert ct_attention_bwd_bf16.launches == before + 1
+    assert dq.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 300, 300), (3, 5, 6, 10)])
+def test_bf16_pool_kernels_bitexact_vs_autograd(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy((np.round(rng.standard_normal(shape) * 2) / 2)
+                         .astype(np.float32)).to(cuda, torch.bfloat16)
+    before = (pool2x2_relu_fwd_bf16.launches, pool2x2_relu_bwd_bf16.launches)
+    xk = x.clone().requires_grad_()
+    y = pool2x2_relu(xk)
+    g = torch.randn(y.shape, device=cuda).to(torch.bfloat16)
+    y.backward(g)
+    xr = x.clone().requires_grad_()
+    yr = F.max_pool2d(F.relu(xr), 2, 2)
+    yr.backward(g)
+    assert (pool2x2_relu_fwd_bf16.launches,
+            pool2x2_relu_bwd_bf16.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, yr) and torch.equal(xk.grad, xr.grad)
+    assert xk.grad.dtype == torch.bfloat16
+
+
+def test_bf16_train_step_on_the_card_matches_the_cpu(cuda):
+    """The size-64 bf16 model's loss and gradients on the card against the
+    same model on the CPU, on the CPU's mined anchors, by what bf16 moves
+    the CPU's result (its f32 model on them): the card's gradient vector
+    as far from the f32 one as the CPU's bf16 one, within 0.5-1.5 of that
+    effect, and within twice it of the CPU's bf16 one (chip_smoke.py's
+    BF16_F32_SPAN and BF16_CARD_CPU_SPAN)."""
+    from ct_tpu_torch.config import TINY_64
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.train.step import loss_and_grads
+
+    task = resolve_task(2, "incre", "ours", "VOC")
+    torch.manual_seed(0)
+    state = build_net(task, 64, device="cpu").state_dict()
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.standard_normal(
+                 (2, 3, 64, 64), np.float32)),
+             "boxes": torch.tensor([[[0.1, 0.1, 0.6, 0.7]],
+                                    [[0.3, 0.2, 0.9, 0.8]]]),
+             "labels": torch.tensor([[3], [17]], dtype=torch.int32),
+             "weights": torch.ones(2, 1),
+             "valid": torch.ones(2, 1, dtype=torch.bool)}
+    grads, mask = {}, None
+    for key, dt, dev in (("cpu16", torch.bfloat16, "cpu"),
+                         ("cpu32", torch.float32, "cpu"),
+                         ("card16", torch.bfloat16, cuda)):
+        net = build_net(task, 64, device=dev, dtype=dt)
+        net.load_state_dict(state)
+        _, m = loss_and_grads(net, {k: v.to(dev) for k, v in batch.items()},
+                              prior_boxes(TINY_64, dev),
+                              mask=None if mask is None else mask.to(dev))
+        mask = m.cpu() if mask is None else mask
+        grads[key] = torch.cat([p.grad.float().cpu().reshape(-1)
+                                for p in net.parameters()])
+    effect = (grads["cpu16"] - grads["cpu32"]).norm()
+    to_f32 = (grads["card16"] - grads["cpu32"]).norm() / effect
+    assert 0.5 <= to_f32 <= 1.5, float(to_f32)
+    assert (grads["card16"] - grads["cpu16"]).norm() <= 2.0 * effect
+
+
+def test_bf16_device_augment_on_the_card_matches_the_cpu(cuda):
+    from ct_tpu_torch.data import augment_device as D
+
+    b, canvas = 16, 384
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.integers(0, 256, (b, 3, canvas, canvas),
+                                           dtype=np.uint8))
+    boxes = torch.tensor([[[0.1, 0.2, 0.5, 0.7]]] * b)
+    labels = torch.full((b, 1), 3, dtype=torch.int32)
+    valid = torch.ones(b, 1, dtype=torch.bool)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    photo, geom = D.sample_augment(gen, boxes.to(cuda), valid.to(cuda))
+    out = D.apply_augment(images.to(cuda), boxes.to(cuda), labels.to(cuda),
+                          valid.to(cuda), photo, geom,
+                          out_dtype=torch.bfloat16)
+    cpu = lambda r: type(r)(*(t.cpu() for t in (
+        getattr(r, f) for f in r.__dataclass_fields__)))
+    ref = D.apply_augment(images, boxes, labels, valid, cpu(photo),
+                          cpu(geom), out_dtype=torch.bfloat16)
+    assert out["image"].dtype == torch.bfloat16
+    d = (out["image"].cpu().float() - ref["image"].float()).abs()
+    assert d.max().item() <= bf16_step(ref["image"].float().abs().max()
+                                       .item())
+    assert (d > 0).float().mean().item() <= 1e-2

@@ -265,8 +265,7 @@ def test_checkpointer_skips_mismatched_shapes_and_prefixes_basenet(
 
 
 # each flag the port refuses, with the ROADMAP item its message names
-REFUSED = {"--bf16": "Queue 1 item 4 \\(bf16 training, the next slice",
-           "--orbax": "Queue 1 item 8",
+REFUSED = {"--orbax": "Queue 1 item 8",
            "--pallas-ct": "the port always runs its CT kernels",
            "--fused-opt": "Queue 1 item 4", "--accum-steps": "Queue 1 item 4",
            "--ndev": "Queue 1 item 8", "--worker-type": "Queue 1 item 5",
@@ -274,7 +273,7 @@ REFUSED = {"--bf16": "Queue 1 item 4 \\(bf16 training, the next slice",
 
 
 @pytest.mark.parametrize("flag", [
-    ["--bf16"], ["--orbax"], ["--pallas-ct", "on"], ["--fused-opt", "on"],
+    ["--orbax"], ["--pallas-ct", "on"], ["--fused-opt", "on"],
     ["--accum-steps", "2"], ["--ndev", "2"], ["--worker-type", "process"],
     ["-d", "COCO"]])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
