@@ -56,12 +56,16 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            ``bwd_dkdv_kernel``;
            ``bias_relu_bwd`` (mask bit for bit) at [8, 64, 300, 300] and a
            ragged shape, timed at [64, 64, 300, 300] beside
-           ``threshold_backward`` and the channel sum.
+           ``threshold_backward`` and the channel sum, in float32 and (row
+           9's bf16 kernel, the type the JAX bench feeds it) in bfloat16.
            bf16 (the bf16 walk of ``csrc/ct_attention_bf16.cuh``):
            ``ct_attention_cm_bf16`` (row 1) at B=8 with C=15 and 60 and
            ragged, ``ct_attention_serving_bf16`` (row 6) at B=8 with
            C=15/N=5 and C=60/N=20 and ragged, ``ct_attention_bf16`` and
-           ``ct_attention_variant_bf16`` (rows 5 and 10) on the attention
+           ``ct_attention_variant_bf16`` (rows 5 and 10) and
+           ``ct_attention_variant_unfused_bf16`` (row 10's unfused
+           float32-exponent body, which must differ from the fused
+           kernel) on the attention
            bench's inputs: each within one bf16 step of the largest output
            of its plain bf16 version (``bf16_step``), the same bits twice,
            timed beside the bf16 SDPA call (row 6: the unfused head in
@@ -159,7 +163,8 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            attention forward bench at B=128 on bf16 inputs (as the JAX
            bench's) and on the same values in float32, the backward bench
            at 300 (B=64) and 512 (B=16), each on bf16 inputs (as the JAX
-           bench's) and in float32, the bias+ReLU backward bench, few
+           bench's) and in float32, the bias+ReLU backward bench on bf16
+           (as the JAX bench's) and in float32, few
            iterations each, with the launches of their kernels; their
            lines go to build/chip_smoke/bench_*.txt.
 10. kernels one line listing every kernel of the port with its launches
@@ -840,28 +845,35 @@ BLOCKWISE_KERNELS = ("bwd_stats_kernel", "dwz_reduce_kernel", "bwd_dq_kernel",
                      "bwd_dkdv_kernel")
 
 
-# cycles of each marker kernel that brackets a profiled window (~25 ms)
-MARKER_CYCLES = 50_000_000
+# a profiled window: a pause on the host before it opens, LEAD_MARKERS
+# marker kernels of MARKER_CYCLES (~6 ms each at the card's 1,980 MHz)
+# before the calls and one after them
+PROFILE_PAUSE_S = 1.0
+MARKER_CYCLES = 12_500_000
+LEAD_MARKERS = 32
 
 
 def profiled_events(fn, iters: int = 1) -> list:
     """The device kernels of ``iters`` calls of ``fn()`` under
-    torch.profiler (averaged by name), after one warm-up call. Two marker
-    kernels of ~25 ms (``torch.cuda._sleep``'s ``spin_kernel``, left out of
-    the result) bracket the calls inside the window: on the card a window
-    that opened tens of seconds after the process's first one lost the
-    kernel it began with (the blockwise backward's stats pass) and kept
-    the next ones, as if the device's timestamps had drifted out of the
-    window's start; the markers keep the measured kernels clear of both
-    ends."""
+    torch.profiler (averaged by name), after one warm-up call. On the card
+    a window opened shortly after an earlier one loses the first kernel
+    records it holds, more the longer the process has run, whatever their
+    length (a probe that logged each window's records lost the leading
+    markers, then the bf16 flash backward's ``pad_kv``, ``prep_kernel``
+    and ``dq_kernel`` in turn). With a pause of PROFILE_PAUSE_S on the host
+    before the window opens and LEAD_MARKERS short markers
+    (``torch.cuda._sleep``'s ``spin_kernel``, left out of the result)
+    ahead of the calls, the probe's windows lost none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    time.sleep(PROFILE_PAUSE_S)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(MARKER_CYCLES)
+        for _ in range(LEAD_MARKERS):
+            torch.cuda._sleep(MARKER_CYCLES)
         for _ in range(iters):
             fn()
         torch.cuda._sleep(MARKER_CYCLES)
@@ -1017,39 +1029,47 @@ def variant_case(rng, b, c, p, kk, time_it: bool) -> dict:
     return res
 
 
-def bias_relu_case(rng, shape, time_it: bool) -> dict:
-    """``bias_relu_bwd`` (row 9): the mask bit for bit the plain version's,
-    dbias within DBIAS_TOL of each channel's Σ|masked|; timed beside
-    ``threshold_backward`` and the channel sum."""
+def bias_relu_case(rng, shape, time_it: bool, bf16: bool = False) -> dict:
+    """``bias_relu_bwd`` (row 9), on float32 or (``bf16``, the type the
+    JAX bench feeds it) bfloat16 g and y: the mask bit for bit the plain
+    version's (the sign of zero too), dbias float32 within DBIAS_TOL of
+    each channel's Σ|masked|; timed beside ``threshold_backward`` and the
+    channel sum in float32, its bound the bytes of g, y and masked (12 an
+    element in float32, 6 in bf16) and dbias."""
     import torch
 
     from ct_tpu_torch.ops.bias_relu import (
-        bias_relu_bwd, bias_relu_bwd_reference,
+        bias_relu_bwd, bias_relu_bwd_bf16, bias_relu_bwd_reference,
     )
     from ct_tpu_torch.scripts.bench_bias_relu_bwd import library
 
-    g = device_normal(rng, shape)
-    y = torch.relu(device_normal(rng, shape))
+    dtype, bits = ((torch.bfloat16, torch.int16) if bf16
+                   else (torch.float32, torch.int32))
+    kernel = bias_relu_bwd_bf16 if bf16 else bias_relu_bwd
+    g = device_normal(rng, shape).to(dtype)
+    y = torch.relu(device_normal(rng, shape)).to(dtype)
     masked, dbias = bias_relu_bwd(g, y)
     ref, ref_dbias = bias_relu_bwd_reference(g, y)
-    scale = ref.abs().sum(dim=(0, 2, 3))
+    scale = ref.float().abs().sum(dim=(0, 2, 3))
     torch.cuda.synchronize()
-    res = {"shape": list(shape), "mask_bitexact": bool(torch.equal(masked,
-                                                                   ref)),
+    res = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "mask_bitexact": bool(torch.equal(masked.view(bits),
+                                             ref.view(bits))),
            "max_abs_err": (dbias - ref_dbias).abs().max().item(),
            "dbias_rel_err": ((dbias - ref_dbias).abs() / scale).max().item(),
            "tol": DBIAS_TOL}
-    if not (res["mask_bitexact"] and res["dbias_rel_err"] <= DBIAS_TOL):
-        raise AssertionError(f"bias_relu_bwd disagrees with its plain "
+    if not (res["mask_bitexact"] and res["dbias_rel_err"] <= DBIAS_TOL
+            and masked.dtype == dtype and dbias.dtype == torch.float32):
+        raise AssertionError(f"{kernel.__name__} disagrees with its plain "
                              f"version: {res}")
     del masked, ref
     if time_it:
         n = g.numel()
-        res.update(ms=cuda_ms(lambda: bias_relu_bwd(g, y), 10),
+        res.update(ms=cuda_ms(lambda: kernel(g, y), 10),
                    plain_ms=cuda_ms(lambda: bias_relu_bwd_reference(g, y),
                                     10),
                    library_ms=cuda_ms(lambda: library(g, y), 10),
-                   **bound(2 * n, 12 * n + 4 * shape[1]))
+                   **bound(2 * n, 3 * g.element_size() * n + 4 * shape[1]))
     return res
 
 
@@ -1214,17 +1234,20 @@ def bf16_serving_case(rng, b, c, p, kk, n, time_it: bool) -> dict:
 
 
 def bf16_rowmajor_case(rng, b, c, p, kk, time_batch: int = 0) -> dict:
-    """``ct_attention_bf16`` (row 5's forward) and
-    ``ct_attention_variant_bf16`` (row 10) on the attention bench's bf16
-    inputs (normal × 0.3, wz float32) against their plain bf16 versions;
-    the variant must differ from the row-major kernel somewhere (its
-    rounded argument). Timed at batch ``time_batch`` (0: not timed)."""
+    """``ct_attention_bf16`` (row 5's forward), ``ct_attention_variant_bf16``
+    (row 10) and ``ct_attention_variant_unfused_bf16`` (row 10's unfused
+    float32-exponent body) on the attention bench's bf16 inputs (normal ×
+    0.3, wz float32) against their plain bf16 versions; the variant must
+    differ from the row-major kernel somewhere (its rounded argument), and
+    so must the unfused one (its denominator, the f32 sum of the weights
+    before their rounding). Timed at batch ``time_batch`` (0: not
+    timed)."""
     import torch
     import torch.nn.functional as F
 
     from ct_tpu_torch.ops.ct_attention import (
         ct_attention_bf16, ct_attention_reference_bf16,
-        ct_attention_variant_bf16,
+        ct_attention_variant_bf16, ct_attention_variant_unfused_bf16,
     )
 
     def inputs(n):
@@ -1232,22 +1255,30 @@ def bf16_rowmajor_case(rng, b, c, p, kk, time_batch: int = 0) -> dict:
         return (t(n, p, c), t(n, kk, c), t(n, kk, c), t(n, p, c),
                 device_normal(rng, (c,)))
 
-    variant_ref = lambda *a: ct_attention_reference_bf16(*a, exp_bf16=True)
+    kernels = (
+        ("fwd", ct_attention_bf16, ct_attention_reference_bf16),
+        ("variant", ct_attention_variant_bf16,
+         lambda *a: ct_attention_reference_bf16(*a, exp_bf16=True)),
+        ("unfused", ct_attention_variant_unfused_bf16,
+         lambda *a: ct_attention_reference_bf16(*a, unfused=True)))
     args = inputs(b)
     res = {}
     with torch.no_grad():
-        for name, fn, plain in (("fwd", ct_attention_bf16,
-                                 ct_attention_reference_bf16),
-                                ("variant", ct_attention_variant_bf16,
-                                 variant_ref)):
+        for name, fn, plain in kernels:
             res[name] = bf16_check(fn.__name__, fn(*args), plain(*args),
                                    same_bits(lambda: (fn(*args),)),
                                    B=b, C=c, P=p, K=kk)
+        fused = ct_attention_bf16(*args)
         res["variant"]["differs_from_fwd"] = bool(not torch.equal(
-            ct_attention_bf16(*args), ct_attention_variant_bf16(*args)))
+            fused, ct_attention_variant_bf16(*args)))
         if not res["variant"]["differs_from_fwd"]:
             raise AssertionError("ct_attention_variant_bf16 ignores its "
                                  "bfloat16 argument")
+        res["unfused"]["differs_from_fused"] = bool(not torch.equal(
+            fused, ct_attention_variant_unfused_bf16(*args)))
+        if not res["unfused"]["differs_from_fused"]:
+            raise AssertionError("ct_attention_variant_unfused_bf16 divides "
+                                 "by the rounded weights' sum")
         if not time_batch:
             return res
         del args
@@ -1257,10 +1288,7 @@ def bf16_rowmajor_case(rng, b, c, p, kk, time_batch: int = 0) -> dict:
         q, k, v = args[:3]
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q[:, None], k[:, None], v[:, None], scale=1.0), 10)
-        for name, fn, plain in (("fwd", ct_attention_bf16,
-                                 ct_attention_reference_bf16),
-                                ("variant", ct_attention_variant_bf16,
-                                 variant_ref)):
+        for name, fn, plain in kernels:
             res[name].update(
                 batch=n, ms=cuda_ms(lambda: fn(*args), 10),
                 plain_ms=cuda_ms(lambda: plain(*args), 2, warmup=1),
@@ -1611,6 +1639,13 @@ def phase_kernel(seed: int) -> dict:
         "bias_relu": bias_relu_case(rng, (8, 64, 300, 300), False),
         "bias_relu_ragged": bias_relu_case(rng, (3, 5, 7, 9), False),
         "bias_relu_timed": bias_relu_case(rng, (64, 64, 300, 300), True),
+        # and on bf16, the type the JAX bench feeds its kernel
+        "bf16_bias_relu": bias_relu_case(rng, (8, 64, 300, 300), False,
+                                         bf16=True),
+        "bf16_bias_relu_ragged": bias_relu_case(rng, (3, 5, 7, 9), False,
+                                                bf16=True),
+        "bf16_bias_relu_timed": bias_relu_case(rng, (64, 64, 300, 300), True,
+                                               bf16=True),
         # bf16 (``--bf16``): row 1 at the eval path's shapes and the
         # transfer width, row 6 at the serving path's, ragged P and K;
         # rows 5 (forward) and 10 on the attention bench's inputs, timed at
@@ -2702,11 +2737,12 @@ def phase_bench(out_dir: str) -> dict:
 
     import torch
 
-    from ct_tpu_torch.ops.bias_relu import bias_relu_bwd
+    from ct_tpu_torch.ops.bias_relu import bias_relu_bwd, bias_relu_bwd_bf16
     from ct_tpu_torch.ops.ct_attention import (
         ct_attention, ct_attention_bf16, ct_attention_bwd,
         ct_attention_bwd_bf16, ct_attention_cm_bwd, ct_attention_cm_bwd_bf16,
         ct_attention_variant, ct_attention_variant_bf16,
+        ct_attention_variant_unfused_bf16,
     )
     from ct_tpu_torch.scripts import (
         bench_bias_relu_bwd, bench_ct_attention, bench_ct_bwd,
@@ -2719,12 +2755,16 @@ def phase_bench(out_dir: str) -> dict:
               "bias_relu_bwd": bias_relu_bwd,
               "ct_attention_bf16": ct_attention_bf16,
               "ct_attention_variant_bf16": ct_attention_variant_bf16,
+              "ct_attention_variant_unfused_bf16":
+                  ct_attention_variant_unfused_bf16,
               "ct_attention_bwd_bf16": ct_attention_bwd_bf16,
-              "ct_attention_cm_bwd_bf16": ct_attention_cm_bwd_bf16}
+              "ct_attention_cm_bwd_bf16": ct_attention_cm_bwd_bf16,
+              "bias_relu_bwd_bf16": bias_relu_bwd_bf16}
     for fn in counts.values():
         fn.launches = 0
-    # the attention bench on bf16 inputs, as the JAX bench feeds them, then
-    # on the same values in float32 (the port's float32 kernels)
+    # the attention and bias+ReLU benches on bf16 inputs, as the JAX
+    # benches feed them, then on the same values in float32 (the port's
+    # float32 kernels)
     benches = (("bench_ct_attention", bench_ct_attention, ["--iters", "3"]),
                ("bench_ct_attention_f32", bench_ct_attention,
                 ["--iters", "3", "--dtype", "float32"]),
@@ -2736,7 +2776,9 @@ def phase_bench(out_dir: str) -> dict:
                ("bench_ct_bwd_512_f32", bench_ct_bwd,
                 ["--size", "512", "--iters", "2", "--dtype", "float32"]),
                ("bench_bias_relu_bwd", bench_bias_relu_bwd,
-                ["--iters", "3"]))
+                ["--iters", "3"]),
+               ("bench_bias_relu_bwd_f32", bench_bias_relu_bwd,
+                ["--iters", "3", "--dtype", "float32"]))
     res = {}
     os.makedirs(out_dir, exist_ok=True)
     for name, module, argv in benches:
@@ -2823,11 +2865,14 @@ def card_vs_cpu(task, net, batch, priors) -> dict:
 def profile_step(fn, out_dir: str, table: str, names=()) -> dict:
     """One step ``fn()`` under torch.profiler: device time by kernel, and
     under ``kernels_ms`` that of each kernel whose name holds one of
-    ``names``. The table goes to ``out_dir/table``."""
+    ``names``. The table goes to ``out_dir/table``. The host pauses first,
+    as before a kernel window (``profiled_events``): a profile opened
+    right after another loses its first kernel records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    time.sleep(PROFILE_PAUSE_S)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2931,6 +2976,8 @@ def kernels_line(results: dict) -> list:
         "ct_attention_bf16": bf16_pipes(kern["bf16_rowmajor"]["fwd"]),
         "ct_attention_variant_bf16": bf16_pipes(
             kern["bf16_rowmajor"]["variant"]),
+        "ct_attention_variant_unfused_bf16": bf16_pipes(
+            kern["bf16_rowmajor"]["unfused"]),
         # bf16 training: rows 2, 3 and 4 at both widths, the backwards
         # split by kernel
         "ct_attention_cm_stats_bf16": {
@@ -3017,6 +3064,14 @@ def kernels_line(results: dict) -> list:
          "ct_tpu/ops/pool_packed_pallas.py:66", train16,
          max(kern[c]["bwd_max_abs_err"] for c in kern
              if c.startswith("bf16_pool")), pool16["bwd"]),
+        ("bias_relu_bwd_bf16", "bias_relu_bwd.cu",
+         "scripts/bench_bias_relu_bwd.py:32", bench,
+         worst("bf16_bias_relu"), kern["bf16_bias_relu_timed"]),
+        ("ct_attention_variant_unfused_bf16", "ct_attention_cm.cu",
+         "scripts/bench_ct_attention.py:36", bench,
+         max(kern[c]["unfused"]["max_abs_err"] for c in
+             ("bf16_rowmajor", "bf16_rowmajor_ragged")),
+         kern["bf16_rowmajor"]["unfused"]),
     ]
     return [{"name": name, "route": "cuda",
              "source": "ct_tpu_torch/csrc/" + src, "replaces": replaces,

@@ -14,7 +14,13 @@
 //   den  = sum_j e[j] * 1               the same product, from a ones
 //                                       column appended to v
 // and the caller forms num / den. The variant rounds the exponential's
-// argument too: e = bf16(exp(bf16(s - m))).
+// argument too: e = bf16(exp(bf16(s - m))). The bench's unfused
+// float32-exponent variant (`make_variant(float32, ..., fuse_denom=False)`
+// on bf16 inputs) multiplies v by the rounded weights but divides by
+//   den  = sum_j exp(s[j] - m)          f32, of the weights BEFORE their
+//                                       rounding (`e.astype(f32)`, e f32)
+// which the walk sums in f32 beside the product under kSumF32 (the ones
+// column is then computed and not read).
 //
 // Every product is one warp-wide mma.sync m16n8k16 on bf16 operands with
 // an f32 accumulator: a bf16 x bf16 product is exact in f32, so one
@@ -194,7 +200,9 @@ __device__ __forceinline__ void stage_tile(bf16* tile,
 // The softmax-weighted sum of one image's values for this warp's 16
 // anchors. On return element r of o[nn] (row g + 8(r/2), class 8nn + 2t +
 // r%2) holds sum_j e[j] vp[j, c], column C the denominator sum_j e[j], and
-// m[h] row g + 8h's max. kp and vp are the padded [B,K,CP] tensors; qa the
+// m[h] row g + 8h's max; with kSumF32, l[h] holds row g + 8h's sum of the
+// unrounded f32 weights, the same in the four threads of a quad (l is left
+// alone without it). kp and vp are the padded [B,K,CP] tensors; qa the
 // warp's q operand (load_rows). Every thread of the block calls it; smem
 // holds kWalkBytes<CP>; the walk begins with a barrier, so the caller may
 // read smem up to the call, and it synchronises before reusing it.
@@ -206,12 +214,13 @@ __device__ __forceinline__ void stage_tile(bf16* tile,
 // accumulators that are added to o with rounded f32 adds once a tile (the
 // tensor cores truncate their accumulator at every step; ct_attention_mma.cuh).
 // Keys past K are masked after the exponential (weight 0) and out of the max.
-template <int CP, bool kExpBf16>
+template <int CP, bool kExpBf16, bool kSumF32 = false>
 __device__ __forceinline__ void attend(const uint32_t (&qa)[CP / 16][4],
                                        const bf16* __restrict__ kp,
                                        const bf16* __restrict__ vp, int b,
                                        int K, bf16* smem,
-                                       float (&o)[CP / 8][4], float (&m)[2]) {
+                                       float (&o)[CP / 8][4], float (&m)[2],
+                                       float (&l)[2]) {
   static_assert(CP % 16 == 0, "tile shapes");
   constexpr int NK = CP / 16;  // k steps of the score product
   constexpr int NN = CP / 8;   // class chunks of P V
@@ -231,6 +240,11 @@ __device__ __forceinline__ void attend(const uint32_t (&qa)[CP / 16][4],
     for (int r = 0; r < 4; ++r) o[nn][r] = 0.f;
   }
   m[0] = m[1] = -INFINITY;
+  // kSumF32: each thread's running sums of its two rows' f32 weights stay
+  // in shared memory between tiles (a slot of its own, no barrier), so
+  // that they hold no register through the P V products
+  __shared__ float lsum[2][kSumF32 ? kThreads : 1];
+  if (kSumF32) lsum[0][threadIdx.x] = lsum[1][threadIdx.x] = 0.f;
 
   const bf16* kb = kp + static_cast<size_t>(b) * K * CP;
   const bf16* vb = vp + static_cast<size_t>(b) * K * CP;
@@ -295,6 +309,7 @@ __device__ __forceinline__ void attend(const uint32_t (&qa)[CP / 16][4],
       // the weights, rounded to bf16, as the A operands of P V: keys
       // 16 half .. +15 in pa[half]
       uint32_t pa[2][4];
+      float part[2] = {0.f, 0.f};  // kSumF32: this tile's, rows g and g + 8
 #pragma unroll
       for (int ch = 0; ch < 4; ++ch) {
         float w[4];
@@ -305,8 +320,16 @@ __device__ __forceinline__ void attend(const uint32_t (&qa)[CP / 16][4],
                  : kExpBf16 ? __expf(__bfloat162float(__float2bfloat16_rn(x)))
                             : __expf(x);
         }
+        if (kSumF32) {  // the weights before their rounding
+          part[0] += w[0] + w[1];
+          part[1] += w[2] + w[3];
+        }
         pa[ch / 2][(ch % 2) * 2 + 0] = pack(w[0], w[1]);  // row g
         pa[ch / 2][(ch % 2) * 2 + 1] = pack(w[2], w[3]);  // row g + 8
+      }
+      if (kSumF32) {
+        lsum[0][threadIdx.x] += part[0];
+        lsum[1][threadIdx.x] += part[1];
       }
       // O += P V, a tile's products in fresh accumulators
       float t[NN][4];
@@ -340,6 +363,14 @@ __device__ __forceinline__ void attend(const uint32_t (&qa)[CP / 16][4],
         m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
         m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
       }
+    }
+  }
+  if (kSumF32) {  // a row's keys are spread over the quad's four threads
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = lsum[h][threadIdx.x];
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
   }
 }

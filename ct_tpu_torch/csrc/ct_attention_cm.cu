@@ -48,7 +48,8 @@
 // classes (zero, never stored) are handled in the walk.
 //
 // bfloat16 (ct_attention_cm_bf16, ct_attention_cm_stats_bf16,
-// ct_attention_bf16 and ct_attention_variant_bf16): the same function on
+// ct_attention_bf16, ct_attention_variant_bf16 and
+// ct_attention_variant_unfused_bf16): the same function on
 // bf16 q, k, v and base, f32 wz, bf16 out, with the JAX kernels' rounding
 // points, on the bf16 walk (ct_attention_bf16.cuh: one m16n8k16 product per
 // tile, the weights rounded to bf16 against the final max, the denominator
@@ -58,7 +59,10 @@
 // to nearest even; the training forward (`_kernel_cm_stats` on bf16) also
 // stores delta = num / den rounded to bf16, as JAX saves it in base's type,
 // and m and z = den in f32, for the bf16 flash backward
-// (ct_attention_bwd_bf16.cu).
+// (ct_attention_bwd_bf16.cu). The bench's unfused float32-exponent variant
+// divides by the f32 sum of the weights before their rounding instead of
+// column C (kSumF32 on the walk: one f32 add a weight, a shared-memory add
+// a tile, two shuffles a row).
 
 #include "ct_attention_bf16.cuh"
 #include "ct_attention_mma.cuh"
@@ -236,8 +240,16 @@ namespace {
 
 using ct::bf::bf16;
 
-template <int CP, bool kRowMajor, bool kExpBf16, bool kStats>
-__global__ void __launch_bounds__(kThreads, ct::bf::kMinBlocks<CP>)
+// The unfused variant (kSumF32) at CP=64 asks for four blocks an SM (up to
+// 128 registers), as many as the fused forward's 128 registers fit: held
+// to three, it took more registers than four blocks allow and ran behind
+// the fused forward by about the lost block. With its running sums in
+// shared memory between tiles (attend) it fits four without a spill.
+template <int CP, bool kRowMajor, bool kExpBf16, bool kStats,
+          bool kSumF32>
+__global__ void __launch_bounds__(kThreads, kSumF32 && CP == 64
+                                                ? 4
+                                                : ct::bf::kMinBlocks<CP>)
 ct_attention_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ kp,
                          const bf16* __restrict__ vp,
@@ -247,6 +259,7 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
                          float* __restrict__ m_out, float* __restrict__ z_out,
                          int C, int P, int K) {
   static_assert(!(kStats && kRowMajor), "statistics are class-major only");
+  static_assert(!kSumF32 || kRowMajor, "the unfused variant is row-major");
   constexpr int kBytes = ct::bf::kWalkBytes<CP>;
   static_assert(CP * kStageStride * 4 <= kBytes &&
                     kRows * (CP + 1) * 4 <= kBytes,
@@ -263,8 +276,8 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
 
   uint32_t qa[CP / 16][4];
   ct::bf::load_rows<CP, kRowMajor>(q, b, p0 + warp * 16, C, P, gq, tq, qa);
-  float o[NN][4], m[2];
-  ct::bf::attend<CP, kExpBf16>(qa, kp, vp, b, K, smem, o, m);
+  float o[NN][4], m[2], l[2];
+  ct::bf::attend<CP, kExpBf16, kSumF32>(qa, kp, vp, b, K, smem, o, m, l);
 
   // the numerators and (column C) the denominator into the stage
   __syncthreads();  // the key tiles are no longer read
@@ -282,7 +295,10 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
       const int row = warp * 16 + gq + (r / 2) * 8;
       const int c = 8 * nn + 2 * tq + r % 2;
       if (kRowMajor) {
-        stagef[row * (CP + 1) + c] = o[nn][r];
+        // kSumF32: column C is the f32 sum of the unrounded weights, held
+        // by each thread of the row's quad; the one holding column C of o
+        // writes it
+        stagef[row * (CP + 1) + c] = kSumF32 && c == C ? l[r / 2] : o[nn][r];
       } else {
         stagef[c * kStageStride + row] = o[nn][r];
       }
@@ -320,7 +336,8 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
 }
 
 // pad k and v into scratch [2][B][K][CP], then the walk
-template <bool kRowMajor, bool kExpBf16, bool kStats = false>
+template <bool kRowMajor, bool kExpBf16, bool kStats = false,
+          bool kSumF32 = false>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* base, const void* wz, void* out, void* scratch,
                 int B, int C, int P, int K, void* stream,
@@ -349,11 +366,11 @@ int launch_bf16(const void* q, const void* k, const void* v,
   float* mf = static_cast<float*>(m);
   float* zf = static_cast<float*>(z);
   if (CP == 16) {
-    ct_attention_bf16_kernel<16, kRowMajor, kExpBf16, kStats>
+    ct_attention_bf16_kernel<16, kRowMajor, kExpBf16, kStats, kSumF32>
         <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, db, mf, zf, C, P,
                                     K);
   } else {
-    ct_attention_bf16_kernel<64, kRowMajor, kExpBf16, kStats>
+    ct_attention_bf16_kernel<64, kRowMajor, kExpBf16, kStats, kSumF32>
         <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, db, mf, zf, C, P,
                                     K);
   }
@@ -409,4 +426,15 @@ extern "C" int ct_attention_variant_bf16(const void* q, const void* k,
                                          int K, void* stream) {
   return launch_bf16<true, true>(q, k, v, base, wz, out, scratch, B, C, P, K,
                                  stream);
+}
+
+// Row-major forward whose denominator is the f32 sum of the weights before
+// their rounding to bf16 (v is still multiplied by the rounded ones): the
+// attention bench's unfused float32-exponent variant on bf16 inputs.
+extern "C" int ct_attention_variant_unfused_bf16(
+    const void* q, const void* k, const void* v, const void* base,
+    const void* wz, void* out, void* scratch, int B, int C, int P, int K,
+    void* stream) {
+  return launch_bf16<true, false, false, true>(q, k, v, base, wz, out,
+                                               scratch, B, C, P, K, stream);
 }

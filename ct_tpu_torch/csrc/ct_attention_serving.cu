@@ -358,8 +358,8 @@ ct_attention_serving_bf16_kernel(const bf16* __restrict__ conf,
     }
   }
 
-  float o[NN][4], m[2];
-  ct::bf::attend<CP, false>(qa, kp, vp, b, K, smem, o, m);
+  float o[NN][4], m[2], l[2];
+  ct::bf::attend<CP, false>(qa, kp, vp, b, K, smem, o, m, l);
 
   // numerators and denominator into the stage; obj and wz beside it
   __syncthreads();  // the key tiles are no longer read

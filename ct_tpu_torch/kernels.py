@@ -90,6 +90,11 @@ SIGNATURES = {
                               (_P, _P, _L, _I, _I, _P)),
     "pool2x2_relu_bwd_bf16": ("pool2x2_relu", "pool2x2_relu_bwd_bf16",
                               (_P, _P, _P, _P, _L, _I, _I, _P)),
+    "bias_relu_bwd_bf16": ("bias_relu_bwd", "bias_relu_bwd_bf16",
+                           (_P,) * 5 + (_I,) * 3 + (_P,)),
+    "ct_attention_variant_unfused_bf16": (
+        "ct_attention_cm", "ct_attention_variant_unfused_bf16",
+        (_P,) * 7 + (_I,) * 4 + (_P,)),
 }
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
 

@@ -56,7 +56,10 @@ the weights e = exp(s − max s) rounded to bf16 before P·V, the denominator
 serving head's q and normalised novel rounded where JAX rounds them). CUDA
 tensors go to the bf16 kernels (``csrc/ct_attention_bf16.cuh``), counted on
 ``ct_attention_cm_bf16.launches`` and its siblings; CPU tensors to the
-plain bf16 versions.
+plain bf16 versions. ``ct_attention_variant_unfused_bf16`` is the attention
+bench's one bf16 body that divides by another sum: its unfused
+float32-exponent variant, whose denominator is Σ e of the float32 weights
+before their rounding (the walk sums them beside its product).
 
 ``ct_attention_cm`` and ``ct_attention`` are differentiable in bf16 too,
 as ``train.py --bf16`` trains (``_fwd_cm``/``_bwd_cm`` on bf16 operands):
@@ -628,17 +631,24 @@ def ct_attention_bwd_reference(q, k, v, wz, g):
     return dq.transpose(1, 2), dk, dv, dwz
 
 
-def ct_attention_reference_bf16(q, k, v, base, wz, exp_bf16=False):
+def ct_attention_reference_bf16(q, k, v, base, wz, exp_bf16=False,
+                                unfused=False):
     """The plain bf16 row-major forward (the JAX ``_kernel`` on bf16
-    operands, and with ``exp_bf16`` the bench's bfloat16-exponent variant,
-    whose exponential's argument is rounded to bf16 too) → [B, P, C] bf16."""
-    s = torch.einsum("bkc,bpc->bkp", k.float(), q.float())
-    x = s - s.amax(dim=1, keepdim=True)
+    operands) → [B, P, C] bf16. With ``exp_bf16``, the bench's
+    bfloat16-exponent variant, whose exponential's argument is rounded to
+    bf16 too; with ``unfused``, the bench's unfused float32-exponent
+    variant, which multiplies v by the weights rounded to bf16 but divides
+    by the float32 sum of the weights before their rounding."""
+    # one [B, K, P] buffer at a time where it can (B=128 at 300: 11 GB each)
+    x = torch.einsum("bkc,bpc->bkp", k.float(), q.float())
+    x = x - x.amax(dim=1, keepdim=True)
     if exp_bf16:
         x = x.to(BF16).float()
-    e = torch.exp(x).to(BF16).float()
-    delta = torch.einsum("bkp,bkc->bpc", e, v.float()) / e.sum(
-        dim=1)[..., None]
+    x = torch.exp(x)
+    e = x.to(BF16).float()
+    den = (x if unfused else e).sum(dim=1)
+    del x
+    delta = torch.einsum("bkp,bkc->bpc", e, v.float()) / den[..., None]
     return (base.float() + delta * wz).to(BF16)
 
 
@@ -769,6 +779,28 @@ def ct_attention_variant_bf16(q, k, v, base, wz) -> torch.Tensor:
 
 
 ct_attention_variant_bf16.launches = 0
+
+
+def ct_attention_variant_unfused_bf16(q, k, v, base, wz) -> torch.Tensor:
+    """The bench's unfused float32-exponent variant on bf16 inputs →
+    [B, P, C] bf16: as ``make_variant(jnp.float32, ..., fuse_denom=False)``
+    computes on the JAX bench's bf16 inputs, v is multiplied by the weights
+    e = exp(s − max s) rounded to bf16 and the sum divided by Σ e of the
+    float32 weights before that rounding (the fused form and
+    ``ct_attention_bf16`` divide by the sum of the rounded ones). Forward
+    only, bf16 only. CUDA tensors go to the kernel, counted on
+    ``ct_attention_variant_unfused_bf16.launches``; CPU tensors to the
+    plain version."""
+    _check(q, k, v, base, wz, "ct_attention_variant_unfused_bf16",
+           row_major=True)
+    _bf16_only("ct_attention_variant_unfused_bf16", q)
+    if _device("ct_attention_variant_unfused_bf16", q) == "cpu":
+        return ct_attention_reference_bf16(q, k, v, base, wz, unfused=True)
+    return _launch_bf16(ct_attention_variant_unfused_bf16, q, k, v, base, wz,
+                        True)
+
+
+ct_attention_variant_unfused_bf16.launches = 0
 
 
 MAX_NOVEL = 64     # the serving kernel's widest classifier

@@ -4,15 +4,18 @@ The port of ``scripts/bench_bias_relu_bwd.py``:
 
     python -m ct_tpu_torch.scripts.bench_bias_relu_bwd [--device cuda|cpu]
         [--iters N] [--batch B] [--shape N C H W ...]
+        [--dtype bfloat16|float32]
 
 On the four conv activations of RFBNet300's trunk in training, NCHW
 [64, 64, 300, 300], [64, 128, 150, 150], [64, 256, 75, 75] and
-[64, 512, 38, 38] (``--batch`` changes N, ``--shape`` replaces the list),
-float32 (the JAX bench's are bfloat16 NHWC): the kernel
+[64, 512, 38, 38] (``--batch`` changes N, ``--shape`` replaces the list;
+the JAX bench's are NHWC), g and y in bfloat16 as the JAX bench feeds them
+(``--dtype float32`` for the float32 kernel), dbias float32: the kernel
 (``bias_relu_bwd``) is held to the plain version (mask bit for bit, dbias
 at rtol 1e-5 and atol 1e-2, the JAX bench's check) and timed beside
 PyTorch's own calls for the same function, ``threshold_backward`` and the
-channel sum. Best of 3 windows. Run it with nothing else on the card.
+channel sum in float32. Best of 3 windows. Run it with nothing else on the
+card.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ def library(g, y):
     """PyTorch's calls for the same function: ReLU's backward and the
     channel sum."""
     masked = torch.ops.aten.threshold_backward(g, y, 0.0)
-    return masked, masked.sum(dim=(0, 2, 3))
+    return masked, masked.sum(dim=(0, 2, 3), dtype=torch.float32)
 
 
 def parse_args(argv=None):
@@ -44,6 +47,8 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--shape", type=int, nargs=4, action="append",
                     default=None, metavar=("N", "C", "H", "W"))
+    ap.add_argument("--dtype", choices=["bfloat16", "float32"],
+                    default="bfloat16", help="g and y (dbias is float32)")
     return ap.parse_args(argv)
 
 
@@ -51,14 +56,16 @@ def main(argv=None) -> dict:
     """Run the bench; returns {shape: numbers}."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    print("device", device_name(device), flush=True)
+    dtype = getattr(torch, args.dtype)
+    print("device", device_name(device), args.dtype, flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
     res = {}
     for shape in args.shape or SHAPES:
         shape = (args.batch or shape[0], *shape[1:])
         # seeded on the device: the largest shape is 368 million values
-        g = torch.randn(shape, generator=gen, device=device)
-        y = torch.relu(torch.randn(shape, generator=gen, device=device))
+        g = torch.randn(shape, generator=gen, device=device).to(dtype)
+        y = torch.relu(torch.randn(shape, generator=gen,
+                                   device=device)).to(dtype)
         mk, dk = bias_relu_bwd(g, y)
         mp, dp = bias_relu_bwd_reference(g, y)
         if not torch.equal(mk, mp):

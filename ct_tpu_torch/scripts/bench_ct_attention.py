@@ -11,16 +11,25 @@ version, the production row-major forward (``ct_attention``) and the
 variants of ``make_variant``, each in ms and TFLOP/s (4·B·P·K·C flops)
 with its max |Δ| against the production kernel. Inputs are seeded normal
 × 0.3 in bfloat16, with wz in float32, as the JAX bench feeds them; then
-the port's bf16 kernels run (``ct_attention_bf16`` and
-``ct_attention_variant_bf16``). ``--dtype float32`` runs the float32
-kernels on the same values in float32. Of the JAX bench's 12 variants
-(exponential in float32 or bfloat16, the denominator fused or not,
-block_q 512, 1024, 2048) the CUDA kernels time two, the exponential's
-type: block_q has no counterpart, and each kernel takes its denominator
-from the weights it multiplies v by (the fused form; on bf16 inputs the
-JAX bench's unfused exp=float32 variant sums the weights before their
-rounding to bf16 instead, at the same cost). Each line names the six
-variants it stands for. Run it with nothing else on the card.
+the port's bf16 kernels run. Of the JAX bench's 12 variants (exponential
+in float32 or bfloat16, the denominator fused or not, block_q 512, 1024,
+2048) three bodies differ on bf16 inputs, and the bench times each:
+
+* exp=float32, fused: the denominator from the ones column of v, the
+  sum of the weights rounded to bf16, as JAX's production ``_kernel``:
+  ``ct_attention_bf16``;
+* exp=float32, unfused: v multiplied by the rounded weights, the sum
+  taken over the float32 weights before their rounding
+  (``e.astype(f32)`` of an f32 e): ``ct_attention_variant_unfused_bf16``;
+* exp=bfloat16: ``ct_attention_variant_bf16``, fused and unfused alike
+  (e is already bf16, so both sums are of the rounded weights).
+
+``--dtype float32`` runs the float32 kernels on the same values in
+float32, where ``fuse_denom`` changes nothing (``e.astype(v.dtype)`` and
+``e.astype(f32)`` are both no-ops): two bodies, ``ct_attention`` and
+``ct_attention_variant``. block_q has no counterpart in the CUDA kernels,
+whose block is its 128 threads. Each line names the variants it stands
+for. Run it with nothing else on the card.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import torch
 from ct_tpu_torch import resolve_device
 from ct_tpu_torch.ops.ct_attention import (
     ct_attention, ct_attention_reference, ct_attention_reference_bf16,
-    ct_attention_variant,
+    ct_attention_variant, ct_attention_variant_unfused_bf16,
 )
 from ct_tpu_torch.scripts import device_name
 from ct_tpu_torch.utils.timing import time_calls
@@ -46,25 +55,35 @@ BLOCK_Q = (512, 1024, 2048)
 def make_variant(exp_dtype, block_q, fuse_denom=False):
     """The row-major forward with its exponential in ``exp_dtype``:
     ``ct_attention`` for torch.float32, ``ct_attention_variant`` (the same
-    kernel with its bfloat16 flag) for torch.bfloat16.
+    kernel with its bfloat16 flag) for torch.bfloat16; on bf16 inputs, the
+    float32 exponential with ``fuse_denom=False`` runs
+    ``ct_attention_variant_unfused_bf16`` (see the module docstring).
 
     ``block_q`` (the TPU kernel's query block) has no counterpart in the
-    CUDA kernel, whose block is its 128 threads, and ``fuse_denom`` (the
-    denominator from a ones column of v, one MXU product on the TPU) is
-    the kernels' form either way (see the module docstring): both are
-    accepted, kept on the returned function and change nothing. On bf16
-    inputs the two wrappers run their bf16 kernels."""
+    CUDA kernel, whose block is its 128 threads: it is kept on the
+    returned function and changes nothing."""
     if exp_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"make_variant: exp_dtype {exp_dtype}")
-    kernel = (ct_attention_variant if exp_dtype == torch.bfloat16
-              else ct_attention)
 
     def fwd(q, k, v, base, wz):
-        return kernel(q, k, v, base, wz)
+        if exp_dtype == torch.bfloat16:
+            return ct_attention_variant(q, k, v, base, wz)
+        if q.dtype == torch.bfloat16 and not fuse_denom:
+            return ct_attention_variant_unfused_bf16(q, k, v, base, wz)
+        return ct_attention(q, k, v, base, wz)
 
     fwd.exp_dtype, fwd.block_q = exp_dtype, block_q
     fwd.fuse_denom = fuse_denom
     return fwd
+
+
+def bodies(dtype):
+    """(exp_dtype, fuse_denom values that share a body) of each variant
+    body the bench times on ``dtype`` inputs."""
+    if dtype == torch.bfloat16:
+        return ((torch.float32, (True,)), (torch.float32, (False,)),
+                (torch.bfloat16, FUSE_DENOM))
+    return ((torch.float32, FUSE_DENOM), (torch.bfloat16, FUSE_DENOM))
 
 
 def parse_args(argv=None):
@@ -115,19 +134,18 @@ def main(argv=None) -> dict:
               flush=True)
         res["production_ms"] = t * 1e3
         prod = ct_attention(*inputs)
-        print("fuse_denom and block_q have no counterpart in the CUDA "
-              "kernel: one timing stands for the variants of each exp "
-              f"(fuse={list(map(int, FUSE_DENOM))}, bq={list(BLOCK_Q)})",
-              flush=True)
-        for exp_dtype in (torch.float32, torch.bfloat16):
-            fn = make_variant(exp_dtype, BLOCK_Q[0])
+        print("block_q has no counterpart in the CUDA kernels: one timing "
+              f"stands for bq={list(BLOCK_Q)}", flush=True)
+        for exp_dtype, fuses in bodies(dtype):
+            fn = make_variant(exp_dtype, BLOCK_Q[0], fuse_denom=fuses[0])
             t = time_calls(fn, inputs, args.iters)
             err = (fn(*inputs).float() - prod.float()).abs().max().item()
             name = str(exp_dtype).split(".")[-1]
-            print(f"exp={name:9s}: {t*1e3:.2f} ms ({flops/t/1e12:.1f} TF/s)"
+            print(f"exp={name:9s} fuse={list(map(int, fuses))}: "
+                  f"{t*1e3:.2f} ms ({flops/t/1e12:.1f} TF/s)"
                   f"  max|Δ|={err:.2e}", flush=True)
             res["variants"].append(
-                {"exp_dtype": name, "fuse_denom": list(FUSE_DENOM),
+                {"exp_dtype": name, "fuse_denom": list(fuses),
                  "block_q": list(BLOCK_Q), "ms": t * 1e3,
                  "max_abs_err": err})
     return res

@@ -15,7 +15,11 @@ between 2⁻⁸·|x| and 2⁻⁷·|x|).
   and held under 2%.
 * Row 5's forward and row 10 (the attention bench's bf16-exponent
   variant) on the bench's bf16 inputs, against JAX's row-major kernel and
-  the bench's ``make_variant``, in the same band.
+  the bench's ``make_variant``, in the same band; and row 10's unfused
+  float32-exponent body (``ct_attention_variant_unfused_bf16``: the
+  denominator summed before the weights' rounding) against
+  ``make_variant(jnp.float32, 1024, fuse_denom=False)``, in the same band
+  and with fewer differing entries than the fused form has against it.
 * What the bf16 path refuses: mixed types, C = 64 (the walk's ones
   column), with a gradient to take too (bf16 training runs,
   tests/test_torch_bf16_train.py).
@@ -187,6 +191,47 @@ def test_rowmajor_and_bench_variant_plain_bf16_match_jax(record_property):
                      record_property, "row10")
     # the variant's rounded argument moves some outputs
     assert not torch.equal(ours, ours_v)
+
+
+def test_bench_unfused_variant_plain_bf16_matches_jax(record_property):
+    """Row 10's unfused float32-exponent body on the JAX bench's bf16
+    inputs: v times the weights rounded to bf16, over the f32 sum of the
+    weights before their rounding (``make_variant(jnp.float32, ...,
+    fuse_denom=False)``, interpret mode). The fused form (the production
+    kernel's function, the sum of the rounded weights) is further from it:
+    more of its entries differ."""
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_bf16, ct_attention_reference_bf16,
+        ct_attention_variant_unfused_bf16,
+    )
+    from scripts.bench_ct_attention import make_variant as j_make_variant
+
+    rng = np.random.default_rng(5)
+    b, p, kk, c = 2, 1001, 97, 60
+    mk = lambda *s: torch.from_numpy(
+        (rng.standard_normal(s) * 0.3).astype(np.float32)).to(BF16)
+    args = (mk(b, p, c), mk(b, kk, c), mk(b, kk, c), mk(b, p, c),
+            torch.from_numpy(rng.standard_normal(c).astype(np.float32)))
+    before = ct_attention_variant_unfused_bf16.launches
+    with torch.no_grad():
+        ours = ct_attention_variant_unfused_bf16(*args)
+        fused = ct_attention_bf16(*args)
+    assert ct_attention_variant_unfused_bf16.launches == before
+    with pltpu.force_tpu_interpret_mode():
+        ref = j_make_variant(jnp.float32, 1024, fuse_denom=False)(
+            *map(to_jax, args))
+    assert ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    hold_to_one_step(ours, ref, record_property, "row10_unfused")
+    differ = lambda t: int((t.float().numpy() != ref).sum())
+    record_property("row10_unfused_differing", differ(ours))
+    record_property("row10_fused_vs_unfused_differing", differ(fused))
+    assert differ(ours) < differ(fused)
+    torch.testing.assert_close(
+        ours, ct_attention_reference_bf16(*args, unfused=True), rtol=0,
+        atol=0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ct_attention_variant_unfused_bf16(*(t.float() for t in args))
 
 
 def test_bf16_refuses_mixed_types_gradients_and_training():

@@ -18,7 +18,8 @@ only on the card: chip_smoke.py, tests/test_torch_cuda.py):
   ``jnp.exp(x.astype(bfloat16))``), and the float32 one (``ct_attention``)
   against ``ct_attention_reference``; 1e-5;
 * the three ported benches run on the CPU at tiny sizes and print their
-  lines (the attention benches here, the bias+ReLU one in
+  lines (the attention benches here, the forward one on bf16 inputs with
+  its three variant bodies and in float32 with two; the bias+ReLU one in
   tests/test_torch_bias_relu.py).
 """
 
@@ -175,14 +176,23 @@ def test_attention_benches_run_on_the_cpu(capsys):
 
     tiny = ["--device", "cpu", "--iters", "1", "--batch", "1", "--anchors",
             "130", "--keys", "33", "--classes", "15"]
-    res = bench_ct_attention.main(tiny)
-    out = capsys.readouterr().out
-    assert "production kernel" in out and out.count("exp=") == 2
-    assert "no counterpart" in out
-    assert [(r["exp_dtype"], len(r["fuse_denom"]) * len(r["block_q"]))
-            for r in res["variants"]] == [("float32", 6), ("bfloat16", 6)]
-    assert max(r["max_abs_err"] for r in res["variants"]
-               if r["exp_dtype"] == "float32") <= 1e-6
+    # on bf16 inputs (the default, as the JAX bench's) three bodies: the
+    # float32 exponential fused (the production kernel's function) and
+    # unfused (its own denominator), and the bfloat16 one; in float32 two,
+    # fuse_denom changing nothing; together they stand for all 12 variants
+    for dtype, want in (("bfloat16", [("float32", [True], 3),
+                                      ("float32", [False], 3),
+                                      ("bfloat16", [False, True], 6)]),
+                        ("float32", [("float32", [False, True], 6),
+                                     ("bfloat16", [False, True], 6)])):
+        res = bench_ct_attention.main(tiny + ["--dtype", dtype])
+        out = capsys.readouterr().out
+        assert "production kernel" in out
+        assert out.count("exp=") == len(want) and "no counterpart" in out
+        assert [(r["exp_dtype"], r["fuse_denom"],
+                 len(r["fuse_denom"]) * len(r["block_q"]))
+                for r in res["variants"]] == want
+        assert res["variants"][0]["max_abs_err"] <= 1e-6
     # the backward bench on bf16 inputs (its default, as the JAX bench's)
     # and in float32: in float32 the blockwise and flash backwards agree
     # to 1e-5; in bf16 they round at other points (a reading), and on the

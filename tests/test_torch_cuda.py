@@ -39,12 +39,16 @@ plain version on the same card, f32 with TF32 off:
   exponential) within half of max |plain bf16 - plain f32|, what the
   bfloat16 rounding itself moves the output by, and further than that
   from the float32 kernel ``ct_attention``;
-* ``bias_relu_bwd``: the mask equal, bit for bit, to the plain version's,
-  and dbias within 1e-5 of each channel's Σ |masked| (f32 sums over up to
-  5.8 million values in another order).
+* ``bias_relu_bwd`` in float32 and (``bias_relu_bwd_bf16``) bfloat16: the
+  mask equal, bit for bit (the sign of zero too), to the plain version's,
+  and dbias float32 within 1e-5 of each channel's Σ |masked| (f32 sums
+  over up to 5.8 million values in another order), at planes whose length
+  is a multiple of 8, of 4 only, and odd, and from a start 8 bytes off a
+  16-byte alignment; one launch counted on the wrapper of its type.
 
 The bfloat16 forwards (``ct_attention_cm_bf16``, ``ct_attention_bf16``,
-``ct_attention_variant_bf16``, ``ct_attention_serving_bf16``; the bf16 walk
+``ct_attention_variant_bf16``, ``ct_attention_variant_unfused_bf16``,
+``ct_attention_serving_bf16``; the bf16 walk
 of ``csrc/ct_attention_bf16.cuh``): within one bf16 step of the largest
 output of their plain bf16 versions (``bf16_step``: the two sum in another
 f32 order and the output is rounded to bf16, so a value at a rounding
@@ -52,7 +56,9 @@ boundary moves by a step), at the eval shapes and at the edges of the
 walk's tiles (P = 1, 63, 64, 65, 1001; K = 1, 31, 32, 33, 97; C = 1, 7, 15,
 16, 17, 60, 63), the same bits twice, one launch counted a call; and
 they refuse C = 64 and mixed types; a call that needs a gradient runs the
-bf16 training forward.
+bf16 training forward. The unfused variant (the denominator summed in f32
+before the weights' rounding) at the bench's inputs also differs from the
+fused kernel, and in fewer entries from its plain version than that.
 
 The bfloat16 training kernels (``train.py --bf16``: rows 2, 3, 4, 5's
 backward and 7): the stats forward, the flash, blockwise and row-major
@@ -84,7 +90,9 @@ import torch.nn.functional as F
 
 from ct_tpu_torch.config import resolve_task
 from ct_tpu_torch.models.rfbnet import build_net
-from ct_tpu_torch.ops.bias_relu import bias_relu_bwd, bias_relu_bwd_reference
+from ct_tpu_torch.ops.bias_relu import (
+    bias_relu_bwd, bias_relu_bwd_bf16, bias_relu_bwd_reference,
+)
 from ct_tpu_torch.ops.ct_attention import (
     bf16_step, ct_attention_bf16, ct_attention_bwd_bf16,
     ct_attention_bwd_reference_bf16, ct_attention_cm_bf16,
@@ -94,6 +102,7 @@ from ct_tpu_torch.ops.ct_attention import (
     ct_attention_cm_stats_reference_bf16, ct_attention_reference_bf16,
     ct_attention_reference_cm_bf16, ct_attention_serving_bf16,
     ct_attention_serving_reference_bf16, ct_attention_variant_bf16,
+    ct_attention_variant_unfused_bf16,
 )
 from ct_tpu_torch.ops.ct_attention import (
     ct_attention, ct_attention_bwd, ct_attention_bwd_reference,
@@ -551,21 +560,67 @@ def test_variant_matches_plain_version(cuda, b, c, p, k):
     assert (out - ct_attention(*args)).abs().max().item() > tol
 
 
+@pytest.mark.parametrize("b,c,p,k", [(2, 60, 11620, 1858), (3, 15, 1001, 97)])
+def test_unfused_variant_bf16_matches_plain_version(cuda, b, c, p, k):
+    """The attention bench's unfused float32-exponent body on its bf16
+    inputs (normal × 0.3): within one bf16 step of its plain version, and
+    not the fused kernel's output (a kernel that divided by the rounded
+    weights' sum, its ones column, would be)."""
+    *qkvb, wz = rowmajor(inputs(c * k + 1, b, c, p, k, cuda))
+    args = (*(t.mul(0.3).to(torch.bfloat16) for t in qkvb), wz)
+    before = ct_attention_variant_unfused_bf16.launches
+    with torch.no_grad():
+        out = ct_attention_variant_unfused_bf16(*args)
+        ref = ct_attention_reference_bf16(*args, unfused=True)
+        fused = ct_attention_bf16(*args)
+    torch.cuda.synchronize()
+    assert ct_attention_variant_unfused_bf16.launches == before + 1
+    assert out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= bf16_step(ref.float().abs().max().item()), err
+    assert not torch.equal(out, fused)
+    assert (out != ref).sum().item() < (fused != ref).sum().item()
+
+
 @pytest.mark.parametrize("shape", [(2, 64, 300, 300), (3, 5, 7, 9),
-                                   (4, 512, 38, 38)])
-def test_bias_relu_kernel_matches_plain_version(cuda, shape):
+                                   (4, 512, 38, 38), (2, 128, 150, 150)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_relu_kernel_matches_plain_version(cuda, shape, dtype):
+    # planes of 90,000 (8k), 22,500 and 1,444 (4k, not 8k) and 63 elements:
+    # the bf16 kernel's 16-, 8- and 2-byte loads
     rng = np.random.default_rng(sum(shape))
-    g = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(cuda,
+                                                                    dtype)
     y = torch.from_numpy(np.maximum(rng.standard_normal(shape, np.float32),
-                                    0)).to(cuda)
-    before = bias_relu_bwd.launches
+                                    0)).to(cuda, dtype)
+    g.view(-1)[0], y.view(-1)[0] = -0.0, 1.0      # a -0.0 passes through
+    wrapper = bias_relu_bwd_bf16 if dtype == torch.bfloat16 else bias_relu_bwd
+    counts = lambda: {f: f.launches for f in (bias_relu_bwd,
+                                              bias_relu_bwd_bf16)}
+    before = counts()
     masked, dbias = bias_relu_bwd(g, y)
     ref, ref_dbias = bias_relu_bwd_reference(g, y)
     torch.cuda.synchronize()
-    assert bias_relu_bwd.launches == before + 1
-    assert torch.equal(masked, ref)
+    assert counts() == {f: n + (f is wrapper) for f, n in before.items()}
+    assert masked.dtype == dtype and dbias.dtype == torch.float32
+    # bit for bit, the sign of zero included
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(masked.view(bits), ref.view(bits))
     assert ((dbias - ref_dbias).abs()
-            <= 1e-5 * ref.abs().sum(dim=(0, 2, 3))).all()
+            <= 1e-5 * ref.float().abs().sum(dim=(0, 2, 3))).all()
+    # an input whose start is 8 bytes past an alignment of 16 takes the
+    # narrower loads and gives the same result
+    if shape[2] * shape[3] % 8 == 0:
+        gs = torch.empty(g.numel() + 8, dtype=dtype, device=cuda)
+        ys = torch.empty_like(gs)
+        off = 8 // g.element_size()
+        gs[off:off + g.numel()] = g.view(-1)
+        ys[off:off + g.numel()] = y.view(-1)
+        m2, d2 = bias_relu_bwd(gs[off:off + g.numel()].view(shape),
+                               ys[off:off + g.numel()].view(shape))
+        assert torch.equal(m2.view(bits), ref.view(bits))
+        assert ((d2 - ref_dbias).abs()
+                <= 1e-5 * ref.float().abs().sum(dim=(0, 2, 3))).all()
 
 
 # the forwards' tiles (and the blockwise stats pass's): a block owns 64
@@ -714,12 +769,15 @@ def bf16_case(path, args):
           base.transpose(1, 2).contiguous(), wz)
     if path == "rowmajor":
         return ct_attention_bf16, rm, ct_attention_reference_bf16
+    if path == "unfused":
+        return (ct_attention_variant_unfused_bf16, rm,
+                lambda *a: ct_attention_reference_bf16(*a, unfused=True))
     return (ct_attention_variant_bf16, rm,
             lambda *a: ct_attention_reference_bf16(*a, exp_bf16=True))
 
 
 @pytest.mark.parametrize("b,c,p,k", BF16_SHAPES)
-@pytest.mark.parametrize("path", ["cm", "rowmajor", "variant"])
+@pytest.mark.parametrize("path", ["cm", "rowmajor", "variant", "unfused"])
 def test_bf16_forwards_match_plain_versions(cuda, path, b, c, p, k):
     args = bf16_inputs(c * p + k + 5, b, c, p, k, cuda, scale=0.5)
     kernel, kargs, plain = bf16_case(path, args)
