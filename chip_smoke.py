@@ -1412,9 +1412,9 @@ def bf16_training_case(rng, b, c, p, kk, time_it: bool) -> dict:
 
 
 # the bf16 backwards' kernels, by the names the profiler gives them: the
-# padding of k and v, the padded layout of q and g·wz, the blockwise stats
+# tile layouts of k and v and of q and g·wz (and g), the blockwise stats
 # pass and its dwz reduction, dq, dk/dv
-BF16_BWD_KERNELS = ("pad_kv", "prep_kernel", "stats_kernel",
+BF16_BWD_KERNELS = ("prep_kv", "prep_q", "stats_kernel",
                     "dwz_reduce_kernel", "dq_kernel", "dkdv_kernel")
 
 
@@ -1480,7 +1480,8 @@ def bf16_rowmajor_bwd_case(rng, b, c, p, kk, time_it: bool) -> dict:
     """Row 5's backward in bf16 (``ct_attention_bwd_bf16``, the JAX bwd
     bench's row-major kernel on its bf16 inputs, normal × 0.3) against its
     plain bf16 version; dq, dk, dv and dwz all float32 as that bench's
-    wrapper emits them."""
+    wrapper emits them. Timed beside the bf16 SDPA backward, and split by
+    kernel (``kernels_ms``) as rows 3 and 4 are."""
     import torch
 
     from ct_tpu_torch.ops.ct_attention import (
@@ -1507,6 +1508,8 @@ def bf16_rowmajor_bwd_case(rng, b, c, p, kk, time_it: bool) -> dict:
                 **bf16_bound(12 * b * p * kk * c, b * p * kk,
                              2 * (2 * b * c * p + 2 * b * kk * c)
                              + 4 * (b * c * p + 2 * b * kk * c + 2 * c)))
+            res["kernels_ms"] = kernel_split_ms(
+                lambda: ct_attention_bwd_bf16(*args), BF16_BWD_KERNELS)
     if time_it:
         torch.cuda.empty_cache()
         res["library_ms"] = sdpa_backward_ms(
@@ -2994,7 +2997,9 @@ def kernels_line(results: dict) -> list:
             **at_width(kern["bf16_blockwise_timed_transfer"], 60),
             "kernels_ms_c60":
                 kern["bf16_blockwise_timed_transfer"]["kernels_ms"]},
-        "ct_attention_bwd_bf16": bf16_pipes(kern["bf16_rowmajor_bwd_timed"]),
+        "ct_attention_bwd_bf16": {
+            **bf16_pipes(kern["bf16_rowmajor_bwd_timed"]),
+            "kernels_ms": kern["bf16_rowmajor_bwd_timed"]["kernels_ms"]},
     }
     bf16 = results["bf16"]
     rows = [

@@ -1,0 +1,248 @@
+// Hopper building blocks of the bfloat16 backward (ct_attention_bwd_bf16.cu):
+// warpgroup matrix products (wgmma) on operand tiles in shared memory, and
+// bulk asynchronous copies of whole tiles into shared memory that complete
+// on an mbarrier.
+//
+// The operand tiles. A tile is kTile = 64 rows (anchors or keys) of CP
+// bf16 classes (CP = 16 or 64), a row's classes contiguous: the layout in
+// which wgmma reads an operand K-major when the classes are the summed
+// dimension (the scores S = Q K^T, dP = GV V^T and their transposes) and
+// MN-major when the rows are (dQ += ds K, delta += attn V, dK += ds^T Q,
+// dV += attn^T GV). Within each group of rows that a swizzle pattern spans
+// the 16-byte chunks of a row are permuted, as wgmma expects them, so that
+// the eight rows a product reads at once fall on distinct banks:
+//  * CP = 64, rows of 128 bytes: the 128-byte swizzle, chunk c of row r at
+//    chunk c ^ (r % 8), eight rows a pattern (1024 bytes);
+//  * CP = 16, rows of 32 bytes: the 32-byte swizzle, chunk c of row r at
+//    c ^ ((r / 4) % 2), eight rows a pattern (256 bytes).
+// The pattern is a function of the shared-memory address, so a tile is
+// placed on a 1024-byte boundary; the prep kernels write the scratch in the
+// same layout, tile after tile, so that staging a tile is one contiguous
+// copy.
+
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
+
+namespace ct {
+namespace wg {
+
+constexpr int kTile = 64;      // rows of an operand tile
+constexpr int kThreads = 128;  // one warpgroup
+
+// Bytes of a [kTile][CP] bf16 tile.
+template <int CP>
+constexpr int kTileBytes = kTile * CP * 2;
+
+// The 16-byte chunk of row r where chunk c of its classes lies.
+template <int CP>
+__host__ __device__ __forceinline__ int chunk_at(int r, int c) {
+  static_assert(CP == 16 || CP == 64, "tile widths");
+  return CP == 64 ? c ^ (r & 7) : c ^ ((r >> 2) & 1);
+}
+
+// Offset in bf16 of (row r, class c) in a tile or a run of whole tiles.
+template <int CP>
+__host__ __device__ __forceinline__ int at(int r, int c) {
+  return r * CP + chunk_at<CP>(r, c >> 3) * 8 + (c & 7);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A shared-memory matrix descriptor of a tile at p (1024-byte aligned, or
+// advanced from such a tile within its pattern): start address, leading
+// and stride byte offsets (lbo, sbo) and the swizzle mode, 1 for 128 bytes
+// and 3 for 32, all as wgmma reads them.
+template <int CP>
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  // sbo: eight rows, from one pattern to the next (K-major: the next eight
+  // rows of M or N; MN-major: the next eight rows of K); lbo: the next
+  // pattern along M or N (unused: a tile is one pattern wide)
+  constexpr uint64_t sbo = 8 * CP * 2;
+  constexpr uint64_t lbo = kTileBytes<CP>;
+  constexpr uint64_t mode = CP == 64 ? 1 : 3;
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((lbo >> 4) << 16) | ((sbo >> 4) << 32) | (mode << 62);
+}
+
+// The descriptor advanced by `bytes` (a multiple of 16).
+__device__ __forceinline__ uint64_t advance(uint64_t d, int bytes) {
+  return d + static_cast<uint64_t>(bytes >> 4);
+}
+
+// A K-major operand's k-th 16 classes: 32 bytes along its rows.
+__device__ __forceinline__ uint64_t k_step(uint64_t d, int k) {
+  return advance(d, 32 * k);
+}
+
+// An MN-major operand's k-th 16 rows.
+template <int CP>
+__device__ __forceinline__ uint64_t row_step(uint64_t d, int k) {
+  return advance(d, 16 * CP * 2 * k);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving a read of an accumulator above the wait
+// that completes the product writing it.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// d (+)= A B on one warpgroup: A [64 x 16] and B [16 x 64] from shared
+// memory (descriptors da, db), both K-major; accumulate = 0 starts d
+// from zero.
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B on one warpgroup: A [64 x 16] from registers (a, the
+// m16n8k16 A fragment of each warp's 16 rows) and B [16 x 64] from shared
+// memory, MN-major (a row of B contiguous); accumulate = 0 starts d from
+// zero.
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (+)= A B on one warpgroup: A [64 x 16] from registers (a, the
+// m16n8k16 A fragment of each warp's 16 rows) and B [16 x 16] from shared
+// memory, MN-major (a row of B contiguous); accumulate = 0 starts d from
+// zero.
+__device__ __forceinline__ void mma_rs_n16(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (+)= A B with B MN-major [16 x CP].
+template <int CP>
+__device__ __forceinline__ void mma_rs(float (&d)[CP / 2],
+                                       const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate) {
+  if constexpr (CP == 64) {
+    mma_rs_n64(d, a, db, accumulate);
+  } else {
+    mma_rs_n16(d, a, db, accumulate);
+  }
+}
+
+// --- mbarriers and bulk copies ---------------------------------------------
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make the initialised barriers visible to the copy engine (then a block
+// barrier makes them visible to the other threads).
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive on bar, expecting `bytes` of copies to complete on it.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global to shared memory; the copy completes on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The first 1024-byte boundary at or after p (shared memory).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+}  // namespace wg
+}  // namespace ct

@@ -86,6 +86,10 @@ SIGNATURES = {
     "ct_attention_bwd_bf16": ("ct_attention_bwd_bf16",
                               "ct_attention_bwd_bf16",
                               (_P,) * 13 + (_I,) * 4 + (_P,)),
+    # row 5's weight division alone, for its card test
+    "ct_attention_bwd_bf16_division": ("ct_attention_bwd_bf16",
+                                       "ct_attention_bwd_bf16_division",
+                                       (_P,) * 4 + (_I, _P)),
     "pool2x2_relu_fwd_bf16": ("pool2x2_relu", "pool2x2_relu_fwd_bf16",
                               (_P, _P, _L, _I, _I, _P)),
     "pool2x2_relu_bwd_bf16": ("pool2x2_relu", "pool2x2_relu_bwd_bf16",

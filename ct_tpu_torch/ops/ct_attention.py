@@ -437,14 +437,27 @@ def ct_attention_cm_stats_bf16(q_cm, k, v, base_cm, wz):
     return out, delta, m, z
 
 
-def _bwd_scratch_bf16(q, b, c, p, kk):
-    """The bf16 backwards' scratch: the padded k and v [2, B, K, CP] and q
-    and g·wz [2, B, CP, Pp] in bf16, the statistics [3, B, Pp] in float32
-    (CP the walk's padded classes, Pp = P rounded up to 64 anchors)."""
+# the bf16 backward kernels' tile of anchors and of keys (csrc wg::kTile):
+# their scratch holds whole tiles, and the stats pass one dwz partial sum a
+# tile of anchors
+BF16_BWD_TILE = 64
+
+
+def _whole_tiles(n: int) -> int:
+    return -(-n // BF16_BWD_TILE) * BF16_BWD_TILE
+
+
+def _bwd_scratch_bf16(q, b, c, p, kk, planes: int):
+    """The bf16 backwards' scratch, in the kernels' tile layout: k and v
+    [2, B, Kp, CP], q, g·wz and (``planes`` 3, the blockwise stats pass) g
+    [planes, B, Pp, CP] in bf16, the statistics [4, B, Pp] in float32 (CP
+    the walk's padded classes, Kp and Pp = K and P rounded up to whole
+    tiles)."""
     cp = _padded_classes(c)
-    pp = -(-p // ANCHORS_PER_BLOCK) * ANCHORS_PER_BLOCK
-    return (q.new_empty((2, b, kk, cp)), q.new_empty((2, b, cp, pp)),
-            q.new_empty((3, b, pp), dtype=torch.float32))
+    pp = _whole_tiles(p)
+    return (q.new_empty((2, b, _whole_tiles(kk), cp)),
+            q.new_empty((planes, b, pp, cp)),
+            q.new_empty((4, b, pp), dtype=torch.float32))
 
 
 def ct_attention_cm_bwd_flash_bf16(q_cm, k, v, wz, g_cm, m, z, colsum):
@@ -467,7 +480,7 @@ def ct_attention_cm_bwd_flash_bf16(q_cm, k, v, wz, g_cm, m, z, colsum):
     kernels.launch(ct_attention_cm_bwd_flash_bf16,
                    "ct_attention_cm_bwd_flash_bf16",
                    (q_cm, k, v, wz, g_cm, m, z, colsum, dq, dk, dv,
-                    *_bwd_scratch_bf16(q_cm, b, c, p, kk)), (b, c, p, kk))
+                    *_bwd_scratch_bf16(q_cm, b, c, p, kk, 2)), (b, c, p, kk))
     return dq, dk, dv
 
 
@@ -481,8 +494,8 @@ def _blockwise_bwd_bf16(wrapper, q, k, v, wz, g, row_major: bool):
     dk = wz.new_empty((b, kk, c))
     dv = wz.new_empty((b, kk, c))
     dwz = wz.new_empty((c,))
-    kvp, qg, stats = _bwd_scratch_bf16(q, b, c, p, kk)
-    part = wz.new_empty((b * stats.shape[2] // ANCHORS_PER_BLOCK, c))
+    kvp, qg, stats = _bwd_scratch_bf16(q, b, c, p, kk, 3)
+    part = wz.new_empty((b * stats.shape[2] // BF16_BWD_TILE, c))
     kernels.launch(wrapper, wrapper.__name__,
                    (q, k, v, wz, g, dq, dk, dv, dwz, kvp, qg, stats, part),
                    (b, c, p, kk))
@@ -517,10 +530,30 @@ def ct_attention_bwd_bf16(q, k, v, wz, g):
     return _blockwise_bwd_bf16(ct_attention_bwd_bf16, q, k, v, wz, g, True)
 
 
+def ct_attention_bwd_bf16_division(e, l):
+    """Row 5's weight division alone, e / l on float32 tensors of one shape
+    → (the bf16 backward kernels' quotient, ``__fdiv_rn``'s), for the card
+    test that holds the two to the same bits. CUDA tensors go to the
+    source's test entry point, counted on
+    ``ct_attention_bwd_bf16_division.launches``; CPU tensors to the plain
+    version, e / l twice."""
+    if e.shape != l.shape or e.dtype != torch.float32 or \
+            l.dtype != torch.float32 or e.device != l.device:
+        raise ValueError("ct_attention_bwd_bf16_division: e and l must be "
+                         "float32 of one shape on one device")
+    if _device("ct_attention_bwd_bf16_division", e) == "cpu":
+        return e / l, e / l
+    out, ref = torch.empty_like(e), torch.empty_like(e)
+    kernels.launch(ct_attention_bwd_bf16_division,
+                   "ct_attention_bwd_bf16_division",
+                   (e.contiguous(), l.contiguous(), out, ref), (e.numel(),))
+    return out, ref
+
+
 for _fn in (ct_attention_cm_stats, ct_attention_cm_bwd_flash,
             ct_attention_cm_bwd, ct_attention_cm_stats_bf16,
             ct_attention_cm_bwd_flash_bf16, ct_attention_cm_bwd_bf16,
-            ct_attention_bwd_bf16):
+            ct_attention_bwd_bf16, ct_attention_bwd_bf16_division):
     _fn.launches = 0
 
 

@@ -292,6 +292,77 @@ def test_bf16_bands_separate_flips_from_wrong_rounding(record_property):
         assert wrong >= 10 * SUM_MEAN_TOL, (name, wrong)
 
 
+def blockwise_in_kernel_order(q, k, v, wz, g, divide, round_attn=True):
+    """The plain bf16 blockwise backward (``ct_attention_cm_bwd_reference_
+    bf16``) in the order of the card's kernels: the row max and the sum of
+    e^(s − m) taken together, online, over key tiles of the kernels' size
+    (l ← l·e^(m_old − m_new) + Σ e^(s − m_new)), then the weights against
+    the final m and l: e·(1/l) or, with ``divide`` (row 5), e / l as
+    Markstein's correction of e·(1/l) (r = 1/l, q0 = e·r, ρ = e − q0·l
+    exactly as an FMA takes it, q = q0 + ρ·r). The rest as the plain
+    version; ``round_attn=False`` leaves bf(attn) unrounded."""
+    s = torch.einsum("bkc,bcp->bkp", k.float(), q.float())
+    m = torch.full_like(s[:, :1], -float("inf"))
+    total = torch.zeros_like(m)
+    for j0 in range(0, s.shape[1], T.BF16_BWD_TILE):
+        tile = s[:, j0:j0 + T.BF16_BWD_TILE]
+        mn = torch.maximum(m, tile.amax(dim=1, keepdim=True))
+        total = total * torch.exp(m - mn) + torch.exp(tile - mn).sum(
+            dim=1, keepdim=True)
+        m = mn
+    e = torch.exp(s - m)
+    r = 1.0 / total
+    if divide:
+        q0 = e * r
+        rho = (e.double() - q0.double() * total.double()).float()
+        attn = (q0.double() + rho.double() * r.double()).float()
+    else:
+        attn = e * r
+    af = attn.to(BF16).float() if round_attn else attn
+    gf = g.float()
+    gv = (gf * wz[None, :, None]).to(BF16).float()
+    dv = torch.einsum("bcp,bkp->bkc", gv, af)
+    dattn = torch.einsum("bkc,bcp->bkp", v.float(), gv)
+    colsum = (af * dattn).sum(dim=1, keepdim=True)
+    ds = (af * (dattn - colsum)).to(BF16).float()
+    dq = torch.einsum("bkc,bkp->bcp", k.float(), ds)
+    dk = torch.einsum("bcp,bkp->bkc", q.float(), ds)
+    delta = torch.einsum("bkc,bkp->bcp", v.float(), af)
+    if not divide:
+        dq = dq.to(BF16)
+    return dq, dk, dv, (gf * delta).sum(dim=(0, 2))
+
+
+@pytest.mark.parametrize("c", [15, 60])
+@pytest.mark.parametrize("row_major", [False, True])
+def test_bf16_kernel_order_within_band(c, row_major, record_property):
+    """The card's blockwise stats order (two walks over the keys: the
+    online max and sum over 64-key tiles, then the weights; row 5's
+    division by Markstein's correction) against the plain bf16 blockwise
+    backward, class-major and row-major (the division), on one image at a
+    full image's K with a peaked softmax: each output's mean moves by at
+    most a tenth of SUM_MEAN_TOL (f32 rounding of the sum flips a few
+    weights by a bf16 step), while leaving bf(attn) unrounded moves one by
+    ten times the band or more."""
+    q, k, v, _, g, wz = attention_inputs(c, 90 + c, b=1, p=2048, kk=1858)
+    wz = wz * 0.1
+    ref = T.ct_attention_cm_bwd_reference_bf16(
+        q, k, v, wz, g, divide=row_major, round_dq=not row_major)
+
+    def mean_rel(outs):
+        return max(float((a.float() - r.float()).abs().mean()
+                         / r.float().abs().mean())
+                   for a, r in zip(outs, ref))
+
+    moved = mean_rel(blockwise_in_kernel_order(q, k, v, wz, g, row_major))
+    record_property("kernel_order_mean_rel", moved)
+    assert moved <= 0.1 * SUM_MEAN_TOL
+    wrong = mean_rel(blockwise_in_kernel_order(q, k, v, wz, g, row_major,
+                                               round_attn=False))
+    record_property("unrounded_attn_mean_rel", wrong)
+    assert wrong >= 10 * SUM_MEAN_TOL
+
+
 @pytest.mark.parametrize("flash", [True, False])
 def test_ct_attention_cm_autograd_bf16_matches_jax_grad(flash, monkeypatch):
     c = 60

@@ -17,10 +17,10 @@ only on the card: chip_smoke.py, tests/test_torch_cuda.py):
   against the same math written in ``jnp`` (the JAX bench's
   ``jnp.exp(x.astype(bfloat16))``), and the float32 one (``ct_attention``)
   against ``ct_attention_reference``; 1e-5;
-* the three ported benches run on the CPU at tiny sizes and print their
-  lines (the attention benches here, the forward one on bf16 inputs with
-  its three variant bodies and in float32 with two; the bias+ReLU one in
-  tests/test_torch_bias_relu.py).
+* the three ported benches and the bf16 backwards' bench run on the CPU at
+  tiny sizes and print their lines (the attention benches here, the
+  forward one on bf16 inputs with its three variant bodies and in float32
+  with two; the bias+ReLU one in tests/test_torch_bias_relu.py).
 """
 
 import jax
@@ -213,3 +213,25 @@ def test_attention_benches_run_on_the_cpu(capsys):
                        for check in ("rowmajor_vs_plain",
                                      "classmajor_vs_plain", "flash_vs_plain")
                        for e in res[check].values())
+
+
+def test_bwd_bf16_bench_runs_on_the_cpu(capsys, tmp_path):
+    """The bf16 backwards' bench (rows 3, 4 and 5's backward, both widths)
+    at a tiny size: one record a row and width, printed and in its JSON
+    file; on the CPU each wrapper is its plain version (no error) and no
+    kernel split is taken."""
+    import json
+
+    from ct_tpu_torch.scripts import bench_bwd_bf16
+
+    out = tmp_path / "bwd.json"
+    res = bench_bwd_bf16.main(["--device", "cpu", "--iters", "1", "--batch",
+                               "1", "--anchors", "130", "--keys", "65",
+                               "--widths", "15", "60", "--json", str(out)])
+    assert [(r["row"], r["C"]) for r in res["rows"]] == [
+        (row, c) for c in (15, 60) for row in ("3", "4", "5 bwd")]
+    assert all(e["max_rel"] == 0 and e["mean_rel"] == 0
+               for r in res["rows"] for e in r["errors"].values())
+    assert all("kernels_ms" not in r for r in res["rows"])
+    assert capsys.readouterr().out.count('"row"') == 6
+    assert json.loads(out.read_text())["rows"] == res["rows"]

@@ -62,10 +62,13 @@ fused kernel, and in fewer entries from its plain version than that.
 
 The bfloat16 training kernels (``train.py --bf16``: rows 2, 3, 4, 5's
 backward and 7): the stats forward, the flash, blockwise and row-major
-backwards against their plain bf16 versions at the same edges and over
-4,964 keys, each output within 1e-4 of its mean |entry| in the mean and
-one bf16 step (the forward's outputs) or 1e-2 (the backward's sums) of its
-largest in the max, the same bits twice; the autograd paths run their kernels once each;
+backwards against their plain bf16 versions at the same edges, at those
+of the backward kernels' 64-row tiles (P and K = 63, 64, 65, 127, 129; C =
+16 and 48 among them) and over 4,964 keys, each output within 1e-4 of its
+mean |entry| in the mean and one bf16 step (the forward's outputs) or 1e-2
+(the backward's sums) of its largest in the max, the same bits twice; row
+5's division (Markstein's correction) bit for bit against ``__fdiv_rn``
+over 2²⁰ pairs; the autograd paths run their kernels once each;
 the bf16 pool bit for bit against torch autograd; the size-64 bf16 model's
 gradients on the card against the CPU's by the bf16 effect; the
 augmentation's bf16 images on the card against the CPU's.
@@ -95,7 +98,8 @@ from ct_tpu_torch.ops.bias_relu import (
 )
 from ct_tpu_torch.ops.ct_attention import (
     bf16_step, ct_attention_bf16, ct_attention_bwd_bf16,
-    ct_attention_bwd_reference_bf16, ct_attention_cm_bf16,
+    ct_attention_bwd_bf16_division, ct_attention_bwd_reference_bf16,
+    ct_attention_cm_bf16,
     ct_attention_cm_bwd_bf16, ct_attention_cm_bwd_flash_bf16,
     ct_attention_cm_bwd_flash_reference_bf16,
     ct_attention_cm_bwd_reference_bf16, ct_attention_cm_stats_bf16,
@@ -846,7 +850,11 @@ BF16_MAX_TOL = 1e-2
 BF16_TRAIN_SHAPES = [(2, 15, 11620, 1858), (2, 60, 11620, 1858),
                      (1, 1, 1, 1), (2, 7, 63, 31), (1, 15, 64, 32),
                      (2, 16, 65, 33), (1, 17, 1001, 97), (2, 60, 64, 1),
-                     (1, 63, 1001, 33), (1, 60, 4100, 4964)]
+                     (1, 63, 1001, 33), (1, 60, 4100, 4964),
+                     # one below, at and one past the backward kernels'
+                     # 64-row tiles of anchors and of keys
+                     (1, 60, 63, 65), (2, 16, 64, 64), (1, 15, 65, 63),
+                     (2, 48, 129, 127)]
 
 
 def hold_bf16_training(outs, plains, names):
@@ -908,6 +916,31 @@ def test_bf16_training_kernels_match_plain_versions(cuda, path, b, c, p, k):
         assert (first[2] - ref[2]).abs().max().item() <= \
             1e-5 * ref[2].abs().max().item()
         assert (first[3] - ref[3]).abs().max().item() <= 2.0 ** -5
+
+
+def test_bf16_backward_division_matches_fdiv_rn(cuda):
+    """Row 5's weights e / l: the backward kernels' quotient (1/l once a
+    row, then Markstein's correction of e·(1/l); the division itself for
+    tiny e) against ``__fdiv_rn`` and torch's division, bit for bit, over
+    2²⁰ pairs across the kernels' range: e in [2⁻¹⁴⁹, 1], subnormals
+    included, l in [1, 5000]."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n = 1 << 20
+    u = lambda: torch.rand(n, generator=gen, device=cuda, dtype=torch.float64)
+    # half spread over the exponents, half uniform in (0, 1]
+    e = torch.cat([torch.exp2(-149 * u()[: n // 2]),
+                   1 - u()[: n // 2]]).float().clamp_min(2.0 ** -149)
+    l = torch.cat([1 + 4999 * u()[: n // 2],
+                   torch.exp2(12.28 * u()[: n // 2])]).float()
+    assert e.min() > 0 and e.max() <= 1 and (e < 2.0 ** -126).sum() > 1000
+    assert l.min() >= 1 and l.max() <= 5000
+    before = ct_attention_bwd_bf16_division.launches
+    out, ref = ct_attention_bwd_bf16_division(e, l)
+    torch.cuda.synchronize()
+    assert ct_attention_bwd_bf16_division.launches == before + 1
+    bits = lambda t: t.view(torch.int32)
+    assert torch.equal(bits(out), bits(ref))
+    assert torch.equal(bits(out), bits(e / l))
 
 
 @pytest.mark.parametrize("flash", [True, False])
