@@ -58,7 +58,12 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            ragged shape, timed at [64, 64, 300, 300] beside
            ``threshold_backward`` and the channel sum, in float32 and (row
            9's bf16 kernel, the type the JAX bench feeds it) in bfloat16.
-           bf16 (the bf16 walk of ``csrc/ct_attention_bf16.cuh``):
+           bf16 (the forwards on ``wgmma`` tiles of
+           ``csrc/ct_attention_cm.cu``, the serving head on the bf16 walk
+           of ``csrc/ct_attention_bf16.cuh``; the prep of k and v that the
+           forwards and backwards share, ``ct_attention_prep_kv_bf16``,
+           bit for bit against its plain version at the train step's
+           shapes, with and without v's ones column):
            ``ct_attention_cm_bf16`` (row 1) at B=8 with C=15 and 60 and
            ragged, ``ct_attention_serving_bf16`` (row 6) at B=8 with
            C=15/N=5 and C=60/N=20 and ragged, ``ct_attention_bf16`` and
@@ -79,9 +84,9 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            the same bits), ``ct_attention_bwd_bf16`` (row 5's backward, on
            the bwd bench's inputs) and ``pool2x2_relu`` on bf16 (row 7, bit
            for bit), at B=8 with C=15 and 60 and ragged, timed at the train
-           step's batch (the bench's for row 5) beside the bf16 SDPA
-           forward and backward and ``relu(max_pool2d)``, with their bounds
-           and the backwards split by kernel; each output within
+           step's batch (the bench's for row 5, at both widths) beside the
+           bf16 SDPA forward and backward and ``relu(max_pool2d)``, with
+           their bounds and the backwards split by kernel; each output within
            BF16_SUM_MEAN_TOL in the mean and one bf16 step (the forward's
            out and delta) or BF16_SUM_MAX_TOL (the backward's sums) in the
            max.
@@ -1184,6 +1189,32 @@ def bf16_attention_case(rng, b, c, p, kk, time_it: bool) -> dict:
     return res
 
 
+def bf16_prep_case(rng, b, c, kk) -> dict:
+    """``ct_attention_prep_kv_bf16``, the bf16 kernels' shared prep of k and
+    v into the tile layout, with and without v's ones column: equal, bit
+    for bit, to its plain version (a torch rearrangement of the
+    zero-padded tensors)."""
+    import torch
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_prep_kv_bf16, prep_kv_reference_bf16,
+    )
+
+    k, v = (device_normal(rng, (b, kk, c)).to(torch.bfloat16)
+            for _ in range(2))
+    res = {"B": b, "C": c, "K": kk}
+    for ones in (True, False):
+        equal = all(torch.equal(a, r) for a, r in zip(
+            ct_attention_prep_kv_bf16(k, v, ones),
+            prep_kv_reference_bf16(k, v, ones)))
+        res[f"equal_ones_{ones}"] = equal
+        if not equal:
+            raise AssertionError(f"ct_attention_prep_kv_bf16 (ones={ones}) "
+                                 f"differs from its plain version: {res}")
+    res["max_abs_err"] = 0.0
+    return res
+
+
 def bf16_serving_case(rng, b, c, p, kk, n, time_it: bool) -> dict:
     """``ct_attention_serving_bf16`` (row 6 in bf16, the ``--int8 --bf16``
     serving path) against its plain bf16 version; timed beside the
@@ -1653,6 +1684,8 @@ def phase_kernel(seed: int) -> dict:
         # transfer width, row 6 at the serving path's, ragged P and K;
         # rows 5 (forward) and 10 on the attention bench's inputs, timed at
         # its batch
+        "bf16_prep_incre": bf16_prep_case(rng, TRAIN_BATCH, 15, 1858),
+        "bf16_prep_transfer": bf16_prep_case(rng, TRAIN_BATCH, 60, 1858),
         "bf16_incre": bf16_attention_case(rng, 8, 15, 11620, 1858, True),
         "bf16_transfer": bf16_attention_case(rng, 8, 60, 11620, 1858, True),
         "bf16_ragged": bf16_attention_case(rng, 3, 60, 1001, 97, False),
@@ -1701,6 +1734,8 @@ def phase_kernel(seed: int) -> dict:
                                                            97, False),
         "bf16_rowmajor_bwd_timed": bf16_rowmajor_bwd_case(
             rng, BENCH_BWD_BATCH, 60, 11620, 1858, True),
+        "bf16_rowmajor_bwd_timed_incre": bf16_rowmajor_bwd_case(
+            rng, BENCH_BWD_BATCH, 15, 11620, 1858, True),
         "bf16_pool": bf16_pool_case(rng, (8, 64, 300, 300), False),
         "bf16_pool_ragged": bf16_pool_case(rng, (3, 5, 6, 10), False),
         "bf16_pool_timed": bf16_pool_case(rng, (TRAIN_BATCH, 64, 300, 300),
@@ -1732,7 +1767,7 @@ def seeded_images(seed: int, n: int, size: int):
 # profiler gives them: their device time in one profiled step
 PROFILED_KERNELS = ("ct_attention_kernel", "ct_attention_serving_kernel",
                     "nms_kernel", "ct_attention_bf16_kernel",
-                    "ct_attention_serving_bf16_kernel", "pad_kv")
+                    "ct_attention_serving_bf16_kernel", "pad_kv", "prep_kv")
 
 
 def eval_steps(step, x, hw, counts: dict, expected: dict, steps: int,
@@ -2999,7 +3034,10 @@ def kernels_line(results: dict) -> list:
                 kern["bf16_blockwise_timed_transfer"]["kernels_ms"]},
         "ct_attention_bwd_bf16": {
             **bf16_pipes(kern["bf16_rowmajor_bwd_timed"]),
-            "kernels_ms": kern["bf16_rowmajor_bwd_timed"]["kernels_ms"]},
+            "kernels_ms": kern["bf16_rowmajor_bwd_timed"]["kernels_ms"],
+            **at_width(kern["bf16_rowmajor_bwd_timed_incre"], 15),
+            "kernels_ms_c15":
+                kern["bf16_rowmajor_bwd_timed_incre"]["kernels_ms"]},
     }
     bf16 = results["bf16"]
     rows = [

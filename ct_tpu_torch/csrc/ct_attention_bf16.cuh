@@ -1,11 +1,10 @@
-// The bfloat16 walk of the Context-Transformer attention forwards
-// (ct_attention_cm.cu: class-major, row-major and the bfloat16-exponent
-// variant; ct_attention_serving.cu: the serving head), for Hopper.
+// The bfloat16 walk of the Context-Transformer serving head
+// (ct_attention_serving.cu), for Hopper; the other bf16 forwards run on
+// warpgroup wgmma tiles (ct_attention_cm.cu).
 //
-// What it computes is the body of the JAX package's forward kernels on
-// bfloat16 operands (`_kernel_cm`, `_kernel`, `_serving_kernel` of
-// ct_tpu/ops/ct_attention.py, and scripts/bench_ct_attention.py's
-// `make_variant`), with their rounding points:
+// What it computes is the attention of the JAX package's forward kernels
+// on bfloat16 operands (`_serving_kernel` of ct_tpu/ops/ct_attention.py,
+// as `_kernel_cm` computes it), with their rounding points:
 //   s[j] = sum_c k[j,c] q[c]            bf16 operands, f32 sums
 //   m    = max_j s[j]                   f32
 //   e[j] = bf16(exp(s[j] - m))          f32 exponential, rounded to nearest
@@ -13,14 +12,7 @@
 //   num  = sum_j e[j] v[j,:]            f32 sums of exact bf16 products
 //   den  = sum_j e[j] * 1               the same product, from a ones
 //                                       column appended to v
-// and the caller forms num / den. The variant rounds the exponential's
-// argument too: e = bf16(exp(bf16(s - m))). The bench's unfused
-// float32-exponent variant (`make_variant(float32, ..., fuse_denom=False)`
-// on bf16 inputs) multiplies v by the rounded weights but divides by
-//   den  = sum_j exp(s[j] - m)          f32, of the weights BEFORE their
-//                                       rounding (`e.astype(f32)`, e f32)
-// which the walk sums in f32 beside the product under kSumF32 (the ones
-// column is then computed and not read).
+// and the caller forms num / den.
 //
 // Every product is one warp-wide mma.sync m16n8k16 on bf16 operands with
 // an f32 accumulator: a bf16 x bf16 product is exact in f32, so one
@@ -74,8 +66,8 @@ constexpr int kWalkBytes = 4 * kTileElems<CP> * static_cast<int>(sizeof(bf16));
 // registers (no hi/lo split): q 2*CP/8, the accumulators 4*CP/8 + 16. At
 // CP=64 at least three blocks (up to 168 registers a thread) keep a
 // tile's fresh P V accumulators beside the running ones; at CP=16, six
-// (up to 85). ptxas on an H100 gave the forwards 126-128 registers at
-// CP=64 and 56 at CP=16 (the serving head 132 and 72), none spilled.
+// (up to 85). ptxas on an H100 gave the serving head 132 registers at
+// CP=64 and 72 at CP=16, none spilled.
 template <int CP>
 constexpr int kMinBlocks = CP <= 16 ? 6 : 3;
 
@@ -154,10 +146,10 @@ __global__ void pad_kv(const bf16* __restrict__ k, const bf16* __restrict__ v,
 // The q operand of a warp's 16 rows (anchors p0 + g, p0 + g + 8), classes
 // as k: x[kk] is the A fragment of classes 16kk .. 16kk+15 (x0: row g,
 // classes 16kk + 2t, +1; x1: row g+8; x2, x3: classes + 8), from a
-// class-major [B,C,P] or row-major [B,P,C] bf16 tensor; zero past P and C.
+// class-major [B,C,P] bf16 tensor; zero past P and C.
 // The halves of x[kk][r] sit where the accumulator of a [16][CP] product
 // holds chunk 2kk + r/2, elements 2(r%2) and 2(r%2) + 1.
-template <int CP, bool kRowMajor>
+template <int CP>
 __device__ __forceinline__ void load_rows(const bf16* __restrict__ src,
                                           int b, int p0, int C, int P, int g,
                                           int t, uint32_t (&x)[CP / 16][4]) {
@@ -171,9 +163,7 @@ __device__ __forceinline__ void load_rows(const bf16* __restrict__ src,
       for (int h = 0; h < 2; ++h) {
         const int c = 16 * kk + 2 * t + (r / 2) * 8 + h;
         const bool ok = p < P && c < C;
-        const size_t o = kRowMajor
-                             ? (static_cast<size_t>(b) * P + p) * C + c
-                             : (static_cast<size_t>(b) * C + c) * P + p;
+        const size_t o = (static_cast<size_t>(b) * C + c) * P + p;
         two[h] = ok ? __bfloat162float(src[o]) : 0.f;
       }
       x[kk][r] = pack(two[0], two[1]);  // exact: the values are bf16
@@ -200,9 +190,7 @@ __device__ __forceinline__ void stage_tile(bf16* tile,
 // The softmax-weighted sum of one image's values for this warp's 16
 // anchors. On return element r of o[nn] (row g + 8(r/2), class 8nn + 2t +
 // r%2) holds sum_j e[j] vp[j, c], column C the denominator sum_j e[j], and
-// m[h] row g + 8h's max; with kSumF32, l[h] holds row g + 8h's sum of the
-// unrounded f32 weights, the same in the four threads of a quad (l is left
-// alone without it). kp and vp are the padded [B,K,CP] tensors; qa the
+// m[h] row g + 8h's max. kp and vp are the padded [B,K,CP] tensors; qa the
 // warp's q operand (load_rows). Every thread of the block calls it; smem
 // holds kWalkBytes<CP>; the walk begins with a barrier, so the caller may
 // read smem up to the call, and it synchronises before reusing it.
@@ -214,13 +202,12 @@ __device__ __forceinline__ void stage_tile(bf16* tile,
 // accumulators that are added to o with rounded f32 adds once a tile (the
 // tensor cores truncate their accumulator at every step; ct_attention_mma.cuh).
 // Keys past K are masked after the exponential (weight 0) and out of the max.
-template <int CP, bool kExpBf16, bool kSumF32 = false>
+template <int CP>
 __device__ __forceinline__ void attend(const uint32_t (&qa)[CP / 16][4],
                                        const bf16* __restrict__ kp,
                                        const bf16* __restrict__ vp, int b,
                                        int K, bf16* smem,
-                                       float (&o)[CP / 8][4], float (&m)[2],
-                                       float (&l)[2]) {
+                                       float (&o)[CP / 8][4], float (&m)[2]) {
   static_assert(CP % 16 == 0, "tile shapes");
   constexpr int NK = CP / 16;  // k steps of the score product
   constexpr int NN = CP / 8;   // class chunks of P V
@@ -240,11 +227,6 @@ __device__ __forceinline__ void attend(const uint32_t (&qa)[CP / 16][4],
     for (int r = 0; r < 4; ++r) o[nn][r] = 0.f;
   }
   m[0] = m[1] = -INFINITY;
-  // kSumF32: each thread's running sums of its two rows' f32 weights stay
-  // in shared memory between tiles (a slot of its own, no barrier), so
-  // that they hold no register through the P V products
-  __shared__ float lsum[2][kSumF32 ? kThreads : 1];
-  if (kSumF32) lsum[0][threadIdx.x] = lsum[1][threadIdx.x] = 0.f;
 
   const bf16* kb = kp + static_cast<size_t>(b) * K * CP;
   const bf16* vb = vp + static_cast<size_t>(b) * K * CP;
@@ -309,27 +291,16 @@ __device__ __forceinline__ void attend(const uint32_t (&qa)[CP / 16][4],
       // the weights, rounded to bf16, as the A operands of P V: keys
       // 16 half .. +15 in pa[half]
       uint32_t pa[2][4];
-      float part[2] = {0.f, 0.f};  // kSumF32: this tile's, rows g and g + 8
 #pragma unroll
       for (int ch = 0; ch < 4; ++ch) {
         float w[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const float x = s[ch][r] - m[r / 2];
-          w[r] = j0 + 8 * ch + 2 * tq + r % 2 >= K ? 0.f
-                 : kExpBf16 ? __expf(__bfloat162float(__float2bfloat16_rn(x)))
-                            : __expf(x);
-        }
-        if (kSumF32) {  // the weights before their rounding
-          part[0] += w[0] + w[1];
-          part[1] += w[2] + w[3];
+          w[r] = j0 + 8 * ch + 2 * tq + r % 2 >= K ? 0.f : __expf(x);
         }
         pa[ch / 2][(ch % 2) * 2 + 0] = pack(w[0], w[1]);  // row g
         pa[ch / 2][(ch % 2) * 2 + 1] = pack(w[2], w[3]);  // row g + 8
-      }
-      if (kSumF32) {
-        lsum[0][threadIdx.x] += part[0];
-        lsum[1][threadIdx.x] += part[1];
       }
       // O += P V, a tile's products in fresh accumulators
       float t[NN][4];
@@ -363,14 +334,6 @@ __device__ __forceinline__ void attend(const uint32_t (&qa)[CP / 16][4],
         m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
         m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
       }
-    }
-  }
-  if (kSumF32) {  // a row's keys are spread over the quad's four threads
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] = lsum[h][threadIdx.x];
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
   }
 }

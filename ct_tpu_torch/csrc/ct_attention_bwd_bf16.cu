@@ -54,10 +54,11 @@
 // the walked tile a second time, MN-major: one staged tile serves both of
 // its products. The k and v rows and the register file they held in the
 // mma.sync design are free for the score accumulators.
-//  * Scratch layout: prep kernels write k, v, q, gv (and for the stats
-//    epilogue the raw g) as [B][rows][CP] bf16 in the swizzled tile layout
-//    of ct_attention_wgmma.cuh, rows padded to whole 64-row tiles with
-//    zeros, so that staging a tile is one contiguous cp.async.bulk that
+//  * Scratch layout: prep kernels (prep_kv, which the forwards share, in
+//    ct_attention_wgmma.cuh, and prep_q) write k, v, q, gv (and for the
+//    stats epilogue the raw g) as [B][rows][CP] bf16 in the swizzled tile
+//    layout of ct_attention_wgmma.cuh, rows padded to whole 64-row tiles
+//    with zeros, so that staging a tile is one contiguous cp.async.bulk that
 //    completes on an mbarrier: the scratch is the port's own, so no tensor
 //    map is needed (one would need libcuda's cuTensorMapEncodeTiled on the
 //    host at each call, for the same contiguous bytes). The
@@ -110,13 +111,21 @@
 namespace {
 
 using namespace ct;
-using ct::wg::kTile;
 using bf16 = __nv_bfloat16;
+using wg::add_to;
+using wg::ex2;
+using wg::kLog2e;
+using wg::kPrepThreads;
+using wg::kTile;
+using wg::mask_keys;
+using wg::round_bf16;
+using wg::rows_product;
+using wg::scores;
+using wg::to_frags;
+using wg::whole_tiles;
 
 constexpr int kNT = wg::kThreads;
 constexpr int kStages = 2;
-constexpr int kPrepThreads = 256;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Blocks an SM that the launch bounds ask registers for. ptxas on an H100
 // (CP=64 / 16): stats 94-128 / 64-71, dq 114-134 / 95-122, dk/dv 165-182
@@ -128,16 +137,6 @@ template <int CP>
 constexpr int kDqBlocks = CP <= 16 ? 4 : 3;
 template <int CP>
 constexpr int kDkDvBlocks = CP <= 16 ? 3 : 2;
-
-__host__ __device__ __forceinline__ int whole_tiles(int n) {
-  return (n + kTile - 1) / kTile * kTile;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // e / l from r = 1/l (correctly rounded): Markstein's correction of q0 =
 // e r by the exact residual e - q0 l, correctly rounded for e = 0 and for
@@ -181,67 +180,6 @@ __device__ __forceinline__ void weights(float (&x)[32], ML ml, R r, L l) {
   }
 }
 
-// bf() of a finite x, nearest even, on the integer pipe: the bits of
-// __bfloat162float(__float2bfloat16_rn(x)) without the conversion unit.
-__device__ __forceinline__ float round_bf16(float x) {
-  uint32_t u = __float_as_uint(x);
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// The A fragments over 64 columns of a [64 x 64] accumulator x (element
-// 4i + r: row g + 8(r/2) of the warp's 16, column 8i + 2t + r%2): a[kk]
-// covers columns 16kk .. 16kk + 15.
-__device__ __forceinline__ void to_frags(const float (&x)[32],
-                                         uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = bf::pack(x[8 * kk + 0], x[8 * kk + 1]);
-    a[kk][1] = bf::pack(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = bf::pack(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = bf::pack(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-// Set to `to` the elements of a [64 x 64] accumulator whose column (key
-// j0 + 8(i/4) + 2t + i%2 for element i) lies past K.
-__device__ __forceinline__ void mask_keys(float (&x)[32], int j0, int K,
-                                          int t, float to = 0.f) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    if (j0 + 8 * (i / 4) + 2 * t + (i & 1) >= K) x[i] = to;
-  }
-}
-
-// s = A B^T, [64 x 64], A and B [64][CP] K-major tiles (descriptors), into
-// s from zero; issued, not waited for.
-template <int CP>
-__device__ __forceinline__ void scores(float (&s)[32], uint64_t da,
-                                       uint64_t db) {
-#pragma unroll
-  for (int kk = 0; kk < CP / 16; ++kk) {
-    wg::mma_ss_n64(s, wg::k_step(da, kk), wg::k_step(db, kk), kk > 0);
-  }
-}
-
-// d = A B over 64 rows of B (an MN-major [64][CP] tile), A the fragments
-// a, into d from zero; issued, not waited for.
-template <int CP>
-__device__ __forceinline__ void rows_product(float (&d)[CP / 2],
-                                             const uint32_t (&a)[4][4],
-                                             uint64_t db) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wg::mma_rs<CP>(d, a[kk], wg::row_step<CP>(db, kk), kk > 0);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void add_to(float (&sum)[N], const float (&t)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) sum[i] += t[i];
-}
-
 // A [kTile][CP] f32 staging of a block's output in shared memory, rows of
 // CP + 8 floats (the float2 stores of an accumulator's quads fall on
 // distinct banks).
@@ -274,45 +212,6 @@ __device__ __forceinline__ void write_rows(float* __restrict__ dst,
 }
 
 // --- prep ----------------------------------------------------------------
-
-// k and v [B,K,C] bf16 → kp and vp [B][Kp][CP] in the tile layout, zero
-// past C and K. A thread a 16-byte chunk of a row.
-template <int CP>
-__global__ void __launch_bounds__(kPrepThreads)
-prep_kv(const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
-        bf16* __restrict__ kp, bf16* __restrict__ vp, int B, int K, int Kp,
-        int C) {
-  constexpr int kChunks = CP / 8;
-  const long long n = static_cast<long long>(B) * Kp * kChunks;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long row = e / kChunks;  // b * Kp + j
-    const int ch = static_cast<int>(e % kChunks);
-    const int b = static_cast<int>(row / Kp);
-    const int j = static_cast<int>(row % Kp);
-    uint32_t kw[4], vw[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      uint32_t k2 = 0, v2 = 0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = 8 * ch + 2 * u + h;
-        if (j < K && c < C) {
-          const size_t at = (static_cast<size_t>(b) * K + j) * C + c;
-          k2 |= static_cast<uint32_t>(k[at]) << (16 * h);
-          v2 |= static_cast<uint32_t>(v[at]) << (16 * h);
-        }
-      }
-      kw[u] = k2;
-      vw[u] = v2;
-    }
-    const size_t o = static_cast<size_t>(row) * CP +
-                     wg::chunk_at<CP>(j, ch) * 8;
-    *reinterpret_cast<uint4*>(kp + o) = make_uint4(kw[0], kw[1], kw[2], kw[3]);
-    *reinterpret_cast<uint4*>(vp + o) = make_uint4(vw[0], vw[1], vw[2], vw[3]);
-  }
-}
 
 // One block a 64-anchor tile of one image: q and g (class-major [B,C,P] or
 // row-major [B,P,C] bf16) → qp = q, gp = bf(g * wz) and, with kRaw, gr = g,
@@ -931,11 +830,8 @@ int prepare(const void* q, const void* k, const void* v, const void* wz,
             const void* g, const void* m, const void* z, const void* colsum,
             const Scratch& sc, int B, int C, int P, int Pp, int K, int Kp,
             cudaStream_t st) {
-  const long long chunks = static_cast<long long>(B) * Kp * (CP / 8);
-  prep_kv<CP><<<grid_for(chunks, kPrepThreads), kPrepThreads, 0, st>>>(
-      static_cast<const uint16_t*>(k), static_cast<const uint16_t*>(v),
-      sc.kp, sc.vp, B, K, Kp, C);
-  int err = status();
+  int err = wg::launch_prep_kv<CP, false>(k, v, sc.kp, sc.vp, B, K, Kp, C,
+                                          st);
   if (err) return err;
   prep_q<CP, kRowMajor, kFlash, !kFlash>
       <<<dim3(Pp / kTile, B), kPrepThreads, 0, st>>>(

@@ -1,4 +1,4 @@
-// Context-Transformer attention, forward, float32, for Hopper.
+// Context-Transformer attention, forwards, float32 and bfloat16, for Hopper.
 //
 // Replaces four Pallas TPU kernels of ct_tpu/ops/ct_attention.py and
 // scripts/bench_ct_attention.py: `_kernel_cm` (the class-major eval forward,
@@ -49,23 +49,46 @@
 //
 // bfloat16 (ct_attention_cm_bf16, ct_attention_cm_stats_bf16,
 // ct_attention_bf16, ct_attention_variant_bf16 and
-// ct_attention_variant_unfused_bf16): the same function on
-// bf16 q, k, v and base, f32 wz, bf16 out, with the JAX kernels' rounding
-// points, on the bf16 walk (ct_attention_bf16.cuh: one m16n8k16 product per
-// tile, the weights rounded to bf16 against the final max, the denominator
-// from v's ones column). Its bound is its B*P*K exponentials on the
-// special-function units, not its products (PERF.md §6). The epilogue
-// divides by the denominator, out = bf16(base + wz * num / den), rounded
-// to nearest even; the training forward (`_kernel_cm_stats` on bf16) also
-// stores delta = num / den rounded to bf16, as JAX saves it in base's type,
-// and m and z = den in f32, for the bf16 flash backward
-// (ct_attention_bwd_bf16.cu). The bench's unfused float32-exponent variant
-// divides by the f32 sum of the weights before their rounding instead of
-// column C (kSumF32 on the walk: one f32 add a weight, a shared-memory add
-// a tile, two shuffles a row).
+// ct_attention_variant_unfused_bf16): the same function on bf16 q, k, v
+// and base, f32 wz, bf16 out, with the JAX kernels' rounding points (listed
+// in ct_attention_bf16.cuh: f32 scores of bf16 products, the weights
+// rounded to bf16 against the final max, the denominator from v's ones
+// column), on warpgroup wgmma tiles (ct_attention_wgmma.cuh). Its bound is
+// its B*P*K exponentials on the special-function units at C=15 and its
+// products at C=60 (PERF.md §6). Design:
+//  * prep_kv (shared with the bf16 backward) lays k and v out as 64-key
+//    tiles in the swizzled layout, zero past C and K, v's column C one;
+//    one warpgroup (128 threads) owns 64 anchors of one image and stages
+//    their q rows once as a tile of the same layout (read along the
+//    anchors, or the rows' contiguous classes, while the first keys land).
+//    q as A fragments held in registers, read once, gave wrong sums on the
+//    card at CP=64 for every tile after the first of walk 2 (reloaded
+//    before each tile's scores, they did not); the tile costs 8 KB of
+//    shared memory and frees 16 registers;
+//  * the keys come in tiles of 64, each staged by one cp.async.bulk that
+//    completes on an mbarrier, two stages; thread 0 refills a stage once
+//    the block has passed the barrier that ends its products;
+//  * walk 1, the max: S = Q K^T (m64n64k16, both tiles read K-major), the
+//    row max of the live keys over a row's four threads;
+//  * walk 2: S again, e = 2^(s log2 e - m log2 e) (one FMA; the variant
+//    rounds s - m to bf16 first and then scales it), keys past K masked,
+//    e rounded to bf16 and packed two by two into A fragments by the
+//    conversion unit (one cvt a pair; on the integer pipe the kernel took
+//    12-24% longer), O += P V from the same staged v tile read MN-major,
+//    its numerators and (column C) denominator in one product; each
+//    tile's product in a fresh accumulator, added with rounded f32 adds
+//    (the tensor cores truncate their accumulator; ct_attention_mma.cuh).
+//    The unfused variant (kSumF32) sums the unrounded f32 weights in
+//    registers beside the product and divides by that sum instead.
+// The epilogue divides by the denominator, out = bf16(base + wz * num /
+// den), rounded to nearest even; the training forward (`_kernel_cm_stats`
+// on bf16) also stores delta = num / den rounded to bf16, as JAX saves it
+// in base's type, and m (natural units) and z = den in f32, for the bf16
+// flash backward (ct_attention_bwd_bf16.cu).
 
 #include "ct_attention_bf16.cuh"
 #include "ct_attention_mma.cuh"
+#include "ct_attention_wgmma.cuh"
 
 namespace {
 
@@ -238,18 +261,30 @@ extern "C" int ct_attention_variant_f32(const void* q, const void* k,
 
 namespace {
 
-using ct::bf::bf16;
+using bf16 = __nv_bfloat16;
+using wg::kTile;
 
-// The unfused variant (kSumF32) at CP=64 asks for four blocks an SM (up to
-// 128 registers), as many as the fused forward's 128 registers fit: held
-// to three, it took more registers than four blocks allow and ran behind
-// the fused forward by about the lost block. With its running sums in
-// shared memory between tiles (attend) it fits four without a spill.
-template <int CP, bool kRowMajor, bool kExpBf16, bool kStats,
-          bool kSumF32>
-__global__ void __launch_bounds__(kThreads, kSumF32 && CP == 64
-                                                ? 4
-                                                : ct::bf::kMinBlocks<CP>)
+constexpr int kStages = 2;
+
+// Blocks an SM that the launch bounds ask registers for (up to 168 a
+// thread at three, 102 at five): at CP=64 a thread holds a tile's scores
+// (32 f32) and the running and the tile's fresh P V (32 each). ptxas on
+// an H100 gave the CP=64 forwards 88-91 registers at three (five blocks
+// an SM fit them and the 41 KB of shared memory) but the unfused variant
+// 126, four blocks an SM; held to five it takes 94 without a spill and
+// runs 10% faster (PERF.md §6). CP=16: 62-82.
+template <int CP, bool kSumF32>
+constexpr int kFwdBlocks = CP <= 16 ? 4 : kSumF32 ? 5 : 3;
+
+// Bytes of dynamic shared memory: the q tile, two stages of a k and a v
+// tile, and the slack to align them.
+template <int CP>
+constexpr int kFwdSmem = (1 + kStages * 2) * wg::kTileBytes<CP> + 1024;
+
+// One warpgroup, 64 anchors of image b. kp and vp: the keys and values in
+// the tile layout, Kp keys (whole tiles), vp's column C the ones.
+template <int CP, bool kRowMajor, bool kExpBf16, bool kStats, bool kSumF32>
+__global__ void __launch_bounds__(wg::kThreads, kFwdBlocks<CP, kSumF32>)
 ct_attention_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ kp,
                          const bf16* __restrict__ vp,
@@ -257,58 +292,174 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ wz,
                          bf16* __restrict__ out, bf16* __restrict__ delta,
                          float* __restrict__ m_out, float* __restrict__ z_out,
-                         int C, int P, int K) {
+                         int C, int P, int K, int Kp) {
   static_assert(!(kStats && kRowMajor), "statistics are class-major only");
   static_assert(!kSumF32 || kRowMajor, "the unfused variant is row-major");
-  constexpr int kBytes = ct::bf::kWalkBytes<CP>;
-  static_assert(CP * kStageStride * 4 <= kBytes &&
-                    kRows * (CP + 1) * 4 <= kBytes,
-                "the epilogue's stage fits in the walk's shared memory");
-  __shared__ __align__(16) unsigned char smem_raw[kBytes];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  float* stagef = reinterpret_cast<float*>(smem_raw);
-  constexpr int NN = CP / 8;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int gq = lane / 4, tq = lane % 4;
+  constexpr int TB = wg::kTileBytes<CP>;
+  constexpr int kStage = 2 * TB;  // a k tile and a v tile
+  static_assert(CP * kStageStride * 4 <= TB + kStages * kStage &&
+                    kTile * (CP + 1) * 4 <= TB + kStages * kStage,
+                "the epilogue's stage fits in the tiles' bytes");
+  extern __shared__ uint8_t dyn[];
+  __shared__ __align__(8) uint64_t bar[kStages];
+  uint8_t* tiles_s = wg::align_1024(dyn);
+  bf16* sq = reinterpret_cast<bf16*>(tiles_s);
+  auto stage_k = [&](int s) { return tiles_s + TB + s * kStage; };
+  auto stage_v = [&](int s) { return tiles_s + TB + s * kStage + TB; };
+  const int tid = threadIdx.x;
+  const int w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kRows;
+  const int p0 = blockIdx.x * kTile;
+  const int tiles = Kp / kTile;
+  const int loads = 2 * tiles;  // walk 1 the k tiles, walk 2 k and v
+  const bf16* kb = kp + static_cast<size_t>(b) * Kp * CP;
+  const bf16* vb = vp + static_cast<size_t>(b) * Kp * CP;
 
-  uint32_t qa[CP / 16][4];
-  ct::bf::load_rows<CP, kRowMajor>(q, b, p0 + warp * 16, C, P, gq, tq, qa);
-  float o[NN][4], m[2], l[2];
-  ct::bf::attend<CP, kExpBf16, kSumF32>(qa, kp, vp, b, K, smem, o, m, l);
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) wg::bar_init(&bar[i], 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+  auto issue = [&](int n) {
+    const int s = n % kStages;
+    const size_t off = static_cast<size_t>(n % tiles) * kTile * CP;
+    const bool values = n >= tiles;
+    wg::bar_expect(&bar[s], values ? 2 * TB : TB);
+    wg::bulk_copy(stage_k(s), kb + off, TB, &bar[s]);
+    if (values) wg::bulk_copy(stage_v(s), vb + off, TB, &bar[s]);
+  };
+  if (tid == 0) {
+    for (int n = 0; n < kStages && n < loads; ++n) issue(n);
+  }
 
-  // the numerators and (column C) the denominator into the stage
-  __syncthreads();  // the key tiles are no longer read
-  if (kStats && tq == 0) {
+  // the block's q rows into the q tile while the first keys land: read
+  // along the anchors (class-major) or the rows' contiguous classes, zero
+  // past P and C
+  for (int e = tid; e < kTile * CP; e += wg::kThreads) {
+    const int c = kRowMajor ? e % CP : e / kTile;
+    const int i = kRowMajor ? e / CP : e % kTile;
+    const int p = p0 + i;
+    bf16 x = __float2bfloat16_rn(0.f);
+    if (p < P && c < C) {
+      x = q[kRowMajor ? (static_cast<size_t>(b) * P + p) * C + c
+                      : (static_cast<size_t>(b) * C + c) * P + p];
+    }
+    sq[wg::at<CP>(i, c)] = x;
+  }
+  wg::fence_proxy_async();
+  __syncthreads();
+
+  const uint64_t dq = wg::desc<CP>(sq);
+  // row h of this thread: 16w + g + 8h of the block; mx its max over the
+  // thread's keys until the end of walk 1, the row's after it
+  float mx[2] = {-INFINITY, -INFINITY}, ml[2] = {0.f, 0.f};
+  float lsum[2] = {0.f, 0.f};  // kSumF32: the unrounded weights' sums
+  float o[CP / 2];
+  wg::zero(o);
+#pragma unroll 1
+  for (int n = 0; n < loads; ++n) {
+    const int s = n % kStages;
+    wg::bar_wait(&bar[s], (n / kStages) & 1);
+    __syncwarp();
+    const int j0 = (n % tiles) * kTile;
+    const bool ragged = j0 + kTile > K;
+    float sc[32];
+    wg::fence();
+    wg::scores<CP>(sc, dq, wg::desc<CP>(stage_k(s)));
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(sc);
+    if (n < tiles) {
+      // walk 1: the max of the live keys' scores
+      if (ragged) wg::mask_keys(sc, j0, K, t, -INFINITY);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+      if (n == tiles - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          ml[h] = __fmul_rn(mx[h], wg::kLog2e);
+        }
+      }
+    } else {
+      // walk 2: the weights against the final max, O += bf(e) V
+      if (kExpBf16) {  // s - m rounded to bf16 two at a time (one cvt)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {  // elements i, i + 1: one row
+          const int h = (i >> 1) & 1;
+          const uint32_t d2 = bf::pack(sc[i] - mx[h], sc[i + 1] - mx[h]);
+          sc[i] = wg::ex2(__fmul_rn(__uint_as_float(d2 << 16), wg::kLog2e));
+          sc[i + 1] = wg::ex2(
+              __fmul_rn(__uint_as_float(d2 & 0xffff0000u), wg::kLog2e));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sc[i] = wg::ex2(__fmaf_rn(sc[i], wg::kLog2e, -ml[(i >> 1) & 1]));
+        }
+      }
+      if (ragged) wg::mask_keys(sc, j0, K, t);
+      if (kSumF32) {  // the weights before their rounding
+#pragma unroll
+        for (int i = 0; i < 32; ++i) lsum[(i >> 1) & 1] += sc[i];
+      }
+      uint32_t a[4][4];
+      wg::to_frags(sc, a);
+      float ot[CP / 2];
+      wg::fence();
+      wg::rows_product<CP>(ot, a, wg::desc<CP>(stage_v(s)));
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(ot);
+      wg::add_to(o, ot);
+    }
+    // every thread is done with stage s: refill it
+    __syncthreads();
+    if (tid == 0 && n + kStages < loads) issue(n + kStages);
+  }
+
+  // the numerators and (column C) the denominator into the stage, which
+  // the tiles' bytes hold (no copy is in flight); element 4i + 2h + u of
+  // o: row 16w + g + 8h, class 8i + 2t + u
+  float* stagef = reinterpret_cast<float*>(tiles_s);
+  if (kStats && t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int p = p0 + warp * 16 + gq + h * 8;
-      if (p < P) m_out[static_cast<size_t>(b) * P + p] = m[h];
+      const int p = p0 + 16 * w + g + 8 * h;
+      if (p < P) m_out[static_cast<size_t>(b) * P + p] = mx[h];
+    }
+  }
+  if (kSumF32) {  // a row's keys are spread over the quad's four threads
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+      lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
     }
   }
 #pragma unroll
-  for (int nn = 0; nn < NN; ++nn) {
+  for (int i = 0; i < CP / 8; ++i) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int row = warp * 16 + gq + (r / 2) * 8;
-      const int c = 8 * nn + 2 * tq + r % 2;
+      const int h = r / 2;
+      const int row = 16 * w + g + 8 * h;
+      const int c = 8 * i + 2 * t + r % 2;
       if (kRowMajor) {
-        // kSumF32: column C is the f32 sum of the unrounded weights, held
-        // by each thread of the row's quad; the one holding column C of o
-        // writes it
-        stagef[row * (CP + 1) + c] = kSumF32 && c == C ? l[r / 2] : o[nn][r];
+        // kSumF32: column C is the f32 sum of the unrounded weights
+        stagef[row * (CP + 1) + c] = kSumF32 && c == C ? lsum[h] : o[4 * i + r];
       } else {
-        stagef[c * kStageStride + row] = o[nn][r];
+        stagef[c * kStageStride + row] = o[4 * i + r];
       }
     }
   }
   __syncthreads();
-  const int rows = min(kRows, P - p0);
+  const int rows = min(kTile, P - p0);
   if (kRowMajor) {
     const size_t first = (static_cast<size_t>(b) * P + p0) * C;
-    for (int e = threadIdx.x; e < rows * C; e += kThreads) {
+    for (int e = tid; e < rows * C; e += wg::kThreads) {
       const int c = e % C;
       const float* st = stagef + (e / C) * (CP + 1);
       const float d = __fdiv_rn(st[c], st[C]);
@@ -316,9 +467,9 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
           __fadd_rn(__bfloat162float(base[first + e]), __fmul_rn(d, wz[c])));
     }
   } else {
-    for (int e = threadIdx.x; e < C * kRows; e += kThreads) {
-      const int c = e / kRows;
-      const int i = e % kRows;
+    for (int e = tid; e < C * kTile; e += wg::kThreads) {
+      const int c = e / kTile;
+      const int i = e % kTile;
       if (i < rows) {
         const size_t at = (static_cast<size_t>(b) * C + c) * P + p0 + i;
         const float d = __fdiv_rn(stagef[c * kStageStride + i],
@@ -328,14 +479,14 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
         if (kStats) delta[at] = __float2bfloat16_rn(d);
       }
     }
-    if (kStats && threadIdx.x < rows) {
-      z_out[static_cast<size_t>(b) * P + p0 + threadIdx.x] =
-          stagef[C * kStageStride + threadIdx.x];
+    if (kStats && tid < rows) {
+      z_out[static_cast<size_t>(b) * P + p0 + tid] =
+          stagef[C * kStageStride + tid];
     }
   }
 }
 
-// pad k and v into scratch [2][B][K][CP], then the walk
+// lay k and v out as tiles into scratch [2][B][Kp][CP], then the walk
 template <bool kRowMajor, bool kExpBf16, bool kStats = false,
           bool kSumF32 = false>
 int launch_bf16(const void* q, const void* k, const void* v,
@@ -346,18 +497,17 @@ int launch_bf16(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int CP = ct::bf::padded_classes(C);
+  const int CP = bf::padded_classes(C);
+  const int Kp = wg::whole_tiles(K);
   bf16* kp = static_cast<bf16*>(scratch);
-  bf16* vp = kp + static_cast<size_t>(B) * K * CP;
-  const long long rows = static_cast<long long>(B) * K;
-  const long long pad_blocks = (rows * CP + 255) / 256;
-  ct::bf::pad_kv<<<static_cast<int>(pad_blocks < 4096 ? pad_blocks : 4096),
-                     256, 0, st>>>(static_cast<const bf16*>(k),
-                                             static_cast<const bf16*>(v), kp,
-                                             vp, rows, C, CP);
-  const cudaError_t pad = cudaGetLastError();
-  if (pad != cudaSuccess) return static_cast<int>(pad);
-  const dim3 grid((P + kRows - 1) / kRows, B);
+  bf16* vp = kp + static_cast<size_t>(B) * Kp * CP;
+  const int err = CP == 16
+                      ? wg::launch_prep_kv<16, true>(k, v, kp, vp, B, K, Kp,
+                                                     C, st)
+                      : wg::launch_prep_kv<64, true>(k, v, kp, vp, B, K, Kp,
+                                                     C, st);
+  if (err) return err;
+  const dim3 grid((P + kTile - 1) / kTile, B);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* bb = static_cast<const bf16*>(base);
   const float* wf = static_cast<const float*>(wz);
@@ -367,12 +517,12 @@ int launch_bf16(const void* q, const void* k, const void* v,
   float* zf = static_cast<float*>(z);
   if (CP == 16) {
     ct_attention_bf16_kernel<16, kRowMajor, kExpBf16, kStats, kSumF32>
-        <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, db, mf, zf, C, P,
-                                    K);
+        <<<grid, wg::kThreads, kFwdSmem<16>, st>>>(qb, kp, vp, bb, wf, ob, db,
+                                                   mf, zf, C, P, K, Kp);
   } else {
     ct_attention_bf16_kernel<64, kRowMajor, kExpBf16, kStats, kSumF32>
-        <<<grid, kThreads, 0, st>>>(qb, kp, vp, bb, wf, ob, db, mf, zf, C, P,
-                                    K);
+        <<<grid, wg::kThreads, kFwdSmem<64>, st>>>(qb, kp, vp, bb, wf, ob, db,
+                                                   mf, zf, C, P, K, Kp);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -380,9 +530,10 @@ int launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // bfloat16 entry points: q, k, v, base and out bf16, wz float32, C < 64;
-// `scratch` holds 2*B*K*CP bf16 (CP = 16 for C < 16, else 64), the padded
-// k and v. Each launches two kernels (the padding, then the walk) on
-// `stream` and returns the launch status.
+// `scratch` holds 2*B*Kp*CP bf16 (CP = 16 for C < 16, else 64; Kp = K
+// rounded up to a multiple of 64), k and v in the tile layout. Each
+// launches two kernels (the prep, then the walk) on `stream` and returns
+// the first launch error.
 
 // Class-major eval forward: q, base, out [B,C,P].
 extern "C" int ct_attention_cm_bf16(const void* q, const void* k,
@@ -437,4 +588,26 @@ extern "C" int ct_attention_variant_unfused_bf16(
     void* stream) {
   return launch_bf16<true, false, false, true>(q, k, v, base, wz, out,
                                                scratch, B, C, P, K, stream);
+}
+
+// The prep alone, for its card test: k and v [B,K,C] bf16 → kp and vp
+// [B][Kp][CP] in the tile layout, with (ones != 0) or without v's ones
+// column.
+extern "C" int ct_attention_prep_kv_bf16(const void* k, const void* v,
+                                         void* kp, void* vp, int B, int C,
+                                         int K, int ones, void* stream) {
+  if (B <= 0 || C <= 0 || C >= 64 || K <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Kp = wg::whole_tiles(K);
+  bf16* kb = static_cast<bf16*>(kp);
+  bf16* vb = static_cast<bf16*>(vp);
+  if (bf::padded_classes(C) == 16) {
+    return ones ? wg::launch_prep_kv<16, true>(k, v, kb, vb, B, K, Kp, C, st)
+                : wg::launch_prep_kv<16, false>(k, v, kb, vb, B, K, Kp, C,
+                                                st);
+  }
+  return ones ? wg::launch_prep_kv<64, true>(k, v, kb, vb, B, K, Kp, C, st)
+              : wg::launch_prep_kv<64, false>(k, v, kb, vb, B, K, Kp, C, st);
 }

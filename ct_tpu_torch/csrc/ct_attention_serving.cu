@@ -317,7 +317,7 @@ ct_attention_serving_bf16_kernel(const bf16* __restrict__ conf,
   uint32_t qa[NK][4];
   {
     uint32_t x[NK][4];
-    ct::bf::load_rows<CP, false>(conf, b, p0 + warp * 16, C, P, gq, tq, x);
+    ct::bf::load_rows<CP>(conf, b, p0 + warp * 16, C, P, gq, tq, x);
     float d[NN][4];
 #pragma unroll
     for (int nn = 0; nn < NN; ++nn) {
@@ -358,8 +358,8 @@ ct_attention_serving_bf16_kernel(const bf16* __restrict__ conf,
     }
   }
 
-  float o[NN][4], m[2], l[2];
-  ct::bf::attend<CP, false>(qa, kp, vp, b, K, smem, o, m, l);
+  float o[NN][4], m[2];
+  ct::bf::attend<CP>(qa, kp, vp, b, K, smem, o, m);
 
   // numerators and denominator into the stage; obj and wz beside it
   __syncthreads();  // the key tiles are no longer read

@@ -1,16 +1,19 @@
-// Hopper building blocks of the bfloat16 backward (ct_attention_bwd_bf16.cu):
-// warpgroup matrix products (wgmma) on operand tiles in shared memory, and
-// bulk asynchronous copies of whole tiles into shared memory that complete
-// on an mbarrier.
+// Hopper building blocks of the bfloat16 attention kernels (the forwards of
+// ct_attention_cm.cu, the backwards of ct_attention_bwd_bf16.cu): warpgroup
+// matrix products (wgmma) on operand tiles in shared memory, bulk
+// asynchronous copies of whole tiles into shared memory that complete on an
+// mbarrier, the elementwise steps between two products, and the prep
+// kernel that lays k and v out as tiles for both.
 //
 // The operand tiles. A tile is kTile = 64 rows (anchors or keys) of CP
 // bf16 classes (CP = 16 or 64), a row's classes contiguous: the layout in
 // which wgmma reads an operand K-major when the classes are the summed
 // dimension (the scores S = Q K^T, dP = GV V^T and their transposes) and
-// MN-major when the rows are (dQ += ds K, delta += attn V, dK += ds^T Q,
-// dV += attn^T GV). Within each group of rows that a swizzle pattern spans
-// the 16-byte chunks of a row are permuted, as wgmma expects them, so that
-// the eight rows a product reads at once fall on distinct banks:
+// MN-major when the rows are (O += P V, dQ += ds K, delta += attn V, dK +=
+// ds^T Q, dV += attn^T GV). Within each group of rows that a swizzle
+// pattern spans the 16-byte chunks of a row are permuted, as wgmma expects
+// them, so that the eight rows a product reads at once fall on distinct
+// banks:
 //  * CP = 64, rows of 128 bytes: the 128-byte swizzle, chunk c of row r at
 //    chunk c ^ (r % 8), eight rows a pattern (1024 bytes);
 //  * CP = 16, rows of 32 bytes: the 32-byte swizzle, chunk c of row r at
@@ -23,8 +26,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "ct_attention_bf16.cuh"
 
 namespace ct {
 namespace wg {
@@ -242,6 +248,152 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   const uint32_t a = smem_u32(p);
   return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// s = A B^T, [64 x 64], A and B [64][CP] K-major tiles (descriptors), into
+// s from zero; issued, not waited for.
+template <int CP>
+__device__ __forceinline__ void scores(float (&s)[32], uint64_t da,
+                                       uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < CP / 16; ++kk) {
+    mma_ss_n64(s, k_step(da, kk), k_step(db, kk), kk > 0);
+  }
+}
+
+// Make this thread's writes to shared memory visible to the products
+// (the async proxy) that a block barrier after it lets read them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --- the elementwise steps between two products ---------------------------
+
+using bf::bf16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// n rounded up to whole tiles.
+__host__ __device__ __forceinline__ int whole_tiles(int n) {
+  return (n + kTile - 1) / kTile * kTile;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// bf() of a finite x, nearest even, on the integer pipe: the bits of
+// __bfloat162float(__float2bfloat16_rn(x)) without the conversion unit.
+__device__ __forceinline__ float round_bf16(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// The A fragments over 64 columns of a [64 x 64] accumulator x (element
+// 4i + r: row g + 8(r/2) of the warp's 16, column 8i + 2t + r%2), rounded
+// to bf16 by the conversion unit, a pair an instruction (in the forward,
+// rounding and packing on the integer pipe took 12-24% longer, PERF.md
+// §6): a[kk] covers columns 16kk .. 16kk + 15.
+__device__ __forceinline__ void to_frags(const float (&x)[32],
+                                         uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = bf::pack(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = bf::pack(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = bf::pack(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = bf::pack(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// Set to `to` the elements of a [64 x 64] accumulator whose column (key
+// j0 + 8(i/4) + 2t + i%2 for element i) lies past K.
+__device__ __forceinline__ void mask_keys(float (&x)[32], int j0, int K,
+                                          int t, float to = 0.f) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (j0 + 8 * (i / 4) + 2 * t + (i & 1) >= K) x[i] = to;
+  }
+}
+
+// d = A B over 64 rows of B (an MN-major [64][CP] tile), A the fragments
+// a, into d from zero; issued, not waited for.
+template <int CP>
+__device__ __forceinline__ void rows_product(float (&d)[CP / 2],
+                                             const uint32_t (&a)[4][4],
+                                             uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    mma_rs<CP>(d, a[kk], row_step<CP>(db, kk), kk > 0);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void add_to(float (&sum)[N], const float (&t)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) sum[i] += t[i];
+}
+
+// --- the prep of k and v ---------------------------------------------------
+
+constexpr int kPrepThreads = 256;
+
+// k and v [B,K,C] bf16 → kp and vp [B][Kp][CP] in the tile layout, zero
+// past C and K; kOnes: vp's column C is 1 for each live key (the
+// forwards' denominator, from the same product as the numerators; C <
+// CP). A thread a 16-byte chunk of a row.
+template <int CP, bool kOnes>
+__global__ void __launch_bounds__(kPrepThreads)
+prep_kv(const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+        bf16* __restrict__ kp, bf16* __restrict__ vp, int B, int K, int Kp,
+        int C) {
+  constexpr int kChunks = CP / 8;
+  constexpr uint32_t kOne = 0x3f80u;  // 1.0 in bf16
+  const long long n = static_cast<long long>(B) * Kp * kChunks;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = e / kChunks;  // b * Kp + j
+    const int ch = static_cast<int>(e % kChunks);
+    const int b = static_cast<int>(row / Kp);
+    const int j = static_cast<int>(row % Kp);
+    uint32_t kw[4], vw[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t k2 = 0, v2 = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 8 * ch + 2 * u + h;
+        if (j < K && c < C) {
+          const size_t at = (static_cast<size_t>(b) * K + j) * C + c;
+          k2 |= static_cast<uint32_t>(k[at]) << (16 * h);
+          v2 |= static_cast<uint32_t>(v[at]) << (16 * h);
+        } else if (kOnes && j < K && c == C) {
+          v2 |= kOne << (16 * h);
+        }
+      }
+      kw[u] = k2;
+      vw[u] = v2;
+    }
+    const size_t o = static_cast<size_t>(row) * CP + chunk_at<CP>(j, ch) * 8;
+    *reinterpret_cast<uint4*>(kp + o) = make_uint4(kw[0], kw[1], kw[2], kw[3]);
+    *reinterpret_cast<uint4*>(vp + o) = make_uint4(vw[0], vw[1], vw[2], vw[3]);
+  }
+}
+
+// Launch prep_kv on st for Kp = whole_tiles(K) → the launch status.
+template <int CP, bool kOnes>
+int launch_prep_kv(const void* k, const void* v, bf16* kp, bf16* vp, int B,
+                   int K, int Kp, int C, cudaStream_t st) {
+  const long long chunks = static_cast<long long>(B) * Kp * (CP / 8);
+  const long long blocks = (chunks + kPrepThreads - 1) / kPrepThreads;
+  prep_kv<CP, kOnes>
+      <<<static_cast<int>(blocks < 8192 ? blocks : 8192), kPrepThreads, 0,
+         st>>>(static_cast<const uint16_t*>(k),
+               static_cast<const uint16_t*>(v), kp, vp, B, K, Kp, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wg

@@ -61,7 +61,7 @@ SIGNATURES = {
                              "ct_attention_serving_f32",
                              (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "nms_mask": ("nms", "nms_mask_f32", (_P, _P, _P, _I, _I, _F, _F, _P)),
-    # bfloat16: one more pointer, the scratch of the padded k and v
+    # bfloat16: one more pointer, the scratch of k and v in the tile layout
     "ct_attention_cm_bf16": ("ct_attention_cm", "ct_attention_cm_bf16",
                              (_P,) * 7 + (_I,) * 4 + (_P,)),
     "ct_attention_bf16": ("ct_attention_cm", "ct_attention_bf16",
@@ -99,6 +99,10 @@ SIGNATURES = {
     "ct_attention_variant_unfused_bf16": (
         "ct_attention_cm", "ct_attention_variant_unfused_bf16",
         (_P,) * 7 + (_I,) * 4 + (_P,)),
+    # the bf16 kernels' prep of k and v alone, for its card test
+    "ct_attention_prep_kv_bf16": ("ct_attention_cm",
+                                  "ct_attention_prep_kv_bf16",
+                                  (_P,) * 4 + (_I,) * 4 + (_P,)),
 }
 SOURCES = tuple(sorted({src for src, _, _ in SIGNATURES.values()}))
 

@@ -54,12 +54,16 @@ the JAX kernels compute on bf16 operands: f32 scores from bf16 products,
 the weights e = exp(s − max s) rounded to bf16 before P·V, the denominator
 Σ e of those rounded weights in f32, the output rounded to bf16 (and the
 serving head's q and normalised novel rounded where JAX rounds them). CUDA
-tensors go to the bf16 kernels (``csrc/ct_attention_bf16.cuh``), counted on
-``ct_attention_cm_bf16.launches`` and its siblings; CPU tensors to the
-plain bf16 versions. ``ct_attention_variant_unfused_bf16`` is the attention
-bench's one bf16 body that divides by another sum: its unfused
-float32-exponent variant, whose denominator is Σ e of the float32 weights
-before their rounding (the walk sums them beside its product).
+tensors go to the bf16 kernels, counted on ``ct_attention_cm_bf16.launches``
+and its siblings: the forwards on warpgroup ``wgmma`` tiles
+(``csrc/ct_attention_cm.cu``, after the prep of k and v into the tile
+layout that they share with the bf16 backwards, ``prep_kv`` in
+``csrc/ct_attention_wgmma.cuh``), the serving head on the bf16 walk
+(``csrc/ct_attention_bf16.cuh``); CPU tensors to the plain bf16 versions.
+``ct_attention_variant_unfused_bf16`` is the attention bench's one bf16
+body that divides by another sum: its unfused float32-exponent variant,
+whose denominator is Σ e of the float32 weights before their rounding (the
+kernel sums them beside its product).
 
 ``ct_attention_cm`` and ``ct_attention`` are differentiable in bf16 too,
 as ``train.py --bf16`` trains (``_fwd_cm``/``_bwd_cm`` on bf16 operands):
@@ -128,20 +132,80 @@ def ct_attention_reference_cm_bf16(q_cm, k, v, base_cm, wz):
 
 
 def _padded_classes(c: int) -> int:
-    """The bf16 walk's class count: C and the ones column (csrc
+    """The bf16 kernels' class count: C and the ones column (csrc
     ``padded_classes``)."""
     return 16 if c < 16 else 64
 
 
+# the bf16 kernels' tile of anchors and of keys (csrc wg::kTile): their
+# scratch holds whole tiles, and the backward's stats pass one dwz partial
+# sum a tile of anchors
+BF16_TILE = 64
+
+
+def _whole_tiles(n: int) -> int:
+    return -(-n // BF16_TILE) * BF16_TILE
+
+
+def _kv_scratch_bf16(q, b, c, kk):
+    """k and v in the bf16 kernels' tile layout: [2, B, Kp, CP] bf16."""
+    return q.new_empty((2, b, _whole_tiles(kk), _padded_classes(c)))
+
+
+def prep_kv_reference_bf16(k, v, ones: bool):
+    """The plain version of the bf16 kernels' prep (csrc ``prep_kv``): k
+    and v [B, K, C] → [B, Kp, CP] each, zero past C and K (Kp = K rounded
+    up to whole tiles), v's column C one for each live key with ``ones``,
+    and within each row the 16-byte chunks (8 classes) permuted as the
+    tiles' swizzle places them (``wg::chunk_at``: chunk c of row r at c ^
+    (r % 8) for CP = 64, c ^ ((r / 4) % 2) for CP = 16)."""
+    b, kk, c = k.shape
+    cp, kp = _padded_classes(c), _whole_tiles(kk)
+    padded = k.new_zeros((2, b, kp, cp))
+    padded[0, :, :kk, :c] = k
+    padded[1, :, :kk, :c] = v
+    if ones:
+        padded[1, :, :kk, c] = 1
+    r = torch.arange(kp)[:, None]
+    chunk = torch.arange(cp)[None, :] // 8
+    swz = chunk ^ (r % 8) if cp == 64 else chunk ^ ((r // 4) % 2)
+    # the chunk permutation is its own inverse: the class at position
+    # (r, d) is class 8·swz(r, d // 8) + d % 8
+    src = (swz * 8 + torch.arange(cp)[None, :] % 8).to(k.device)
+    out = padded.gather(3, src.expand(2, b, kp, cp))
+    return out[0], out[1]
+
+
+def ct_attention_prep_kv_bf16(k, v, ones: bool):
+    """The bf16 kernels' prep alone → (kp, vp), [B, Kp, CP] bf16 each, for
+    its card test. CUDA tensors go to the kernel, counted on
+    ``ct_attention_prep_kv_bf16.launches``; CPU tensors to the plain
+    version."""
+    if (k.dtype != BF16 or v.dtype != BF16 or k.shape != v.shape
+            or k.dim() != 3 or not 0 < k.shape[2] < MAX_CLASSES):
+        raise ValueError("ct_attention_prep_kv_bf16: k and v must be bf16 "
+                         "[B, K, C] of one shape, C at most 63")
+    if _device("ct_attention_prep_kv_bf16", k) == "cpu":
+        return prep_kv_reference_bf16(k, v, ones)
+    b, kk, c = k.shape
+    scratch = _kv_scratch_bf16(k, b, c, kk)
+    kernels.launch(ct_attention_prep_kv_bf16, "ct_attention_prep_kv_bf16",
+                   (k, v, scratch[0], scratch[1]), (b, c, kk, int(ones)))
+    return scratch[0], scratch[1]
+
+
+ct_attention_prep_kv_bf16.launches = 0
+
+
 def _launch_bf16(wrapper, q, k, v, base, wz, row_major: bool):
-    """Launch a bf16 attention forward, with its scratch for the padded k
-    and v allocated here → out, bf16 like base."""
+    """Launch a bf16 attention forward, with its scratch for k and v in
+    the tile layout allocated here → out, bf16 like base."""
     b, p, c = q.shape if row_major else (q.shape[0], q.shape[2], q.shape[1])
     kk = k.shape[1]
     out = torch.empty_like(base)
-    scratch = q.new_empty((2, b, kk, _padded_classes(c)))
     kernels.launch(wrapper, wrapper.__name__,
-                   (q, k, v, base, wz, out, scratch), (b, c, p, kk))
+                   (q, k, v, base, wz, out, _kv_scratch_bf16(q, b, c, kk)),
+                   (b, c, p, kk))
     return out
 
 
@@ -165,7 +229,7 @@ def _check(q, k, v, base, wz, fn: str = "ct_attention_cm",
     """Raise on what the kernels do not take: q and base [B, C, P] (or
     [B, P, C] with ``row_major``), k and v [B, K, C], wz [C], on one
     device; q, k, v and base all float32, C at most 64, or all bfloat16
-    with wz float32, C at most 63 (the bf16 walk's ones column)."""
+    with wz float32, C at most 63 (the bf16 kernels' ones column)."""
     names = (("q", "k", "v", "base", "wz") if row_major
              else ("q_cm", "k", "v", "base_cm", "wz"))
     dt = q.dtype
@@ -417,8 +481,8 @@ def _bf16_only(fn, t):
 
 def ct_attention_cm_stats_bf16(q_cm, k, v, base_cm, wz):
     """The bf16 training forward → (out bf16, delta bf16 [B,C,P], m, z
-    float32 [B,1,P]). CUDA tensors go to the kernel (the bf16 walk with a
-    statistics epilogue), counted on ``ct_attention_cm_stats_bf16
+    float32 [B,1,P]). CUDA tensors go to the kernel (the bf16 forward with
+    a statistics epilogue), counted on ``ct_attention_cm_stats_bf16
     .launches``; CPU tensors to the plain version."""
     _check(q_cm, k, v, base_cm, wz, "ct_attention_cm_stats_bf16")
     _bf16_only("ct_attention_cm_stats_bf16", q_cm)
@@ -430,21 +494,10 @@ def ct_attention_cm_stats_bf16(q_cm, k, v, base_cm, wz):
     delta = torch.empty_like(base_cm)
     m = wz.new_empty((b, 1, p))
     z = wz.new_empty((b, 1, p))
-    scratch = q_cm.new_empty((2, b, kk, _padded_classes(c)))
     kernels.launch(ct_attention_cm_stats_bf16, "ct_attention_cm_stats_bf16",
-                   (q_cm, k, v, base_cm, wz, out, delta, m, z, scratch),
-                   (b, c, p, kk))
+                   (q_cm, k, v, base_cm, wz, out, delta, m, z,
+                    _kv_scratch_bf16(q_cm, b, c, kk)), (b, c, p, kk))
     return out, delta, m, z
-
-
-# the bf16 backward kernels' tile of anchors and of keys (csrc wg::kTile):
-# their scratch holds whole tiles, and the stats pass one dwz partial sum a
-# tile of anchors
-BF16_BWD_TILE = 64
-
-
-def _whole_tiles(n: int) -> int:
-    return -(-n // BF16_BWD_TILE) * BF16_BWD_TILE
 
 
 def _bwd_scratch_bf16(q, b, c, p, kk, planes: int):
@@ -455,8 +508,7 @@ def _bwd_scratch_bf16(q, b, c, p, kk, planes: int):
     tiles)."""
     cp = _padded_classes(c)
     pp = _whole_tiles(p)
-    return (q.new_empty((2, b, _whole_tiles(kk), cp)),
-            q.new_empty((planes, b, pp, cp)),
+    return (_kv_scratch_bf16(q, b, c, kk), q.new_empty((planes, b, pp, cp)),
             q.new_empty((4, b, pp), dtype=torch.float32))
 
 
@@ -495,7 +547,7 @@ def _blockwise_bwd_bf16(wrapper, q, k, v, wz, g, row_major: bool):
     dv = wz.new_empty((b, kk, c))
     dwz = wz.new_empty((c,))
     kvp, qg, stats = _bwd_scratch_bf16(q, b, c, p, kk, 3)
-    part = wz.new_empty((b * stats.shape[2] // BF16_BWD_TILE, c))
+    part = wz.new_empty((b * stats.shape[2] // BF16_TILE, c))
     kernels.launch(wrapper, wrapper.__name__,
                    (q, k, v, wz, g, dq, dk, dv, dwz, kvp, qg, stats, part),
                    (b, c, p, kk))

@@ -20,7 +20,10 @@ between 2⁻⁸·|x| and 2⁻⁷·|x|).
   denominator summed before the weights' rounding) against
   ``make_variant(jnp.float32, 1024, fuse_denom=False)``, in the same band
   and with fewer differing entries than the fused form has against it.
-* What the bf16 path refuses: mixed types, C = 64 (the walk's ones
+* The plain version of the bf16 kernels' prep of k and v (which the card
+  test holds the kernel to) against the tile layout written out element
+  by element.
+* What the bf16 path refuses: mixed types, C = 64 (the kernels' ones
   column), with a gradient to take too (bf16 training runs,
   tests/test_torch_bf16_train.py).
 * The size-64 model (phase 2 incre ``ours``, seeded weights through
@@ -81,7 +84,8 @@ from ct_tpu_torch.models.fold_bn import fold_bn
 from ct_tpu_torch.models.quantize import attach, calibrate
 from ct_tpu_torch.models.rfbnet import build_net, eval_scores
 from ct_tpu_torch.ops.ct_attention import (
-    bf16_step, ct_attention_cm, ct_attention_cm_bf16, ct_attention_serving,
+    bf16_step, ct_attention_cm, ct_attention_cm_bf16,
+    ct_attention_prep_kv_bf16, ct_attention_serving,
     ct_attention_serving_bf16,
 )
 from ct_tpu_torch.ops.detection import postprocess
@@ -232,6 +236,39 @@ def test_bench_unfused_variant_plain_bf16_matches_jax(record_property):
         atol=0)
     with pytest.raises(TypeError, match="bfloat16"):
         ct_attention_variant_unfused_bf16(*(t.float() for t in args))
+
+
+@pytest.mark.parametrize("c,kk", [(15, 70), (60, 130), (1, 1)])
+def test_bf16_prep_plain_version_is_the_tile_layout(c, kk):
+    """The plain version of the bf16 kernels' prep of k and v (the one the
+    card test holds the kernel to) against the tile layout written out
+    element by element (``wg::at``: chunk c of row r at c ^ (r % 8) for
+    CP = 64, c ^ ((r / 4) % 2) for CP = 16): zero past C and K, v's column
+    C one for each live key with ``ones``; on the CPU the wrapper is the
+    plain version and launches nothing."""
+    rng = np.random.default_rng(c + kk)
+    k, v = (torch.from_numpy(rng.standard_normal((2, kk, c)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    cp = 16 if c < 16 else 64
+    rows = -(-kk // 64) * 64
+    before = ct_attention_prep_kv_bf16.launches
+    for ones in (True, False):
+        kp, vp = ct_attention_prep_kv_bf16(k, v, ones)
+        assert kp.shape == vp.shape == (2, rows, cp)
+        want_k = torch.zeros(2, rows, cp, dtype=torch.bfloat16)
+        want_v = torch.zeros(2, rows, cp, dtype=torch.bfloat16)
+        for r in range(rows):
+            for col in range(cp):
+                ch = col >> 3
+                at = 8 * (ch ^ (r % 8) if cp == 64 else ch ^ ((r >> 2) & 1))
+                at += col & 7
+                if r < kk and col < c:
+                    want_k[:, r, at] = k[:, r, col]
+                    want_v[:, r, at] = v[:, r, col]
+                elif ones and r < kk and col == c:
+                    want_v[:, r, at] = 1
+        assert torch.equal(kp, want_k) and torch.equal(vp, want_v)
+    assert ct_attention_prep_kv_bf16.launches == before
 
 
 def test_bf16_refuses_mixed_types_gradients_and_training():

@@ -304,8 +304,8 @@ def blockwise_in_kernel_order(q, k, v, wz, g, divide, round_attn=True):
     s = torch.einsum("bkc,bcp->bkp", k.float(), q.float())
     m = torch.full_like(s[:, :1], -float("inf"))
     total = torch.zeros_like(m)
-    for j0 in range(0, s.shape[1], T.BF16_BWD_TILE):
-        tile = s[:, j0:j0 + T.BF16_BWD_TILE]
+    for j0 in range(0, s.shape[1], T.BF16_TILE):
+        tile = s[:, j0:j0 + T.BF16_TILE]
         mn = torch.maximum(m, tile.amax(dim=1, keepdim=True))
         total = total * torch.exp(m - mn) + torch.exp(tile - mn).sum(
             dim=1, keepdim=True)
@@ -361,6 +361,55 @@ def test_bf16_kernel_order_within_band(c, row_major, record_property):
                                                round_attn=False))
     record_property("unrounded_attn_mean_rel", wrong)
     assert wrong >= 10 * SUM_MEAN_TOL
+
+
+def forward_in_kernel_order(q, k, v, base, wz):
+    """The plain bf16 training forward (``ct_attention_cm_stats_reference_
+    bf16``) in the order of the card's kernel: the row max over all keys
+    first (its first walk), the weights rounded to bf16 against it, then
+    each 64-key tile's numerators and denominator (v's ones column) as one
+    f32 product, added to the running sums with rounded f32 adds → (out,
+    delta, m, z)."""
+    s = torch.einsum("bkc,bcp->bkp", k.float(), q.float())
+    m = s.amax(dim=1, keepdim=True)
+    e = torch.exp(s - m).to(BF16).float()
+    v1 = torch.cat([v.float(), torch.ones_like(v[..., :1]).float()], dim=2)
+    acc = torch.zeros(q.shape[0], q.shape[1] + 1, q.shape[2])
+    for j0 in range(0, k.shape[1], T.BF16_TILE):
+        tile = slice(j0, j0 + T.BF16_TILE)
+        acc = acc + torch.einsum("bkp,bkc->bcp", e[:, tile], v1[:, tile])
+    num, z = acc[:, :-1], acc[:, -1:]
+    delta = num / z
+    out = base.float() + delta * wz[None, :, None]
+    return out.to(BF16), delta.to(BF16), m, z
+
+
+@pytest.mark.parametrize("c", [15, 60])
+def test_bf16_forward_kernel_order_within_band(c, record_property):
+    """The card's bf16 forward order (the max over the keys, the weights
+    rounded against it, a 64-key tile's num and den as one product added
+    with rounded f32 adds) against JAX's ``_kernel_cm`` and
+    ``_kernel_cm_stats`` on bf16 operands, in interpret mode, at K = 300
+    (five tiles, the last ragged): out and delta within one bf16 step of
+    the largest output, at most MAX_DIFFERING_SHARE of them a step apart;
+    m and z to rtol 1e-5. Records the distances."""
+    q, k, v, base, _, wz = attention_inputs(c, 30 + c, b=1, p=1001, kk=300)
+    ours = forward_in_kernel_order(q, k, v, base, wz)
+    ref = jax_stats(q, k, v, base, wz)
+    ref_eval = J.ct_attention_cm(*map(to_jax, (q, k, v, base, wz)), 1024,
+                                 True)
+    for name, a, r in (("out", ours[0], ref[0]), ("delta", ours[1], ref[1]),
+                       ("eval_out", ours[0], ref_eval)):
+        a, r = np32(a), np32(r)
+        record_property(f"{name}_max_in_steps",
+                        float(np.abs(a - r).max()
+                              / bf16_step(np.abs(r).max())))
+        record_property(f"{name}_differing_share", float((a != r).mean()))
+    hold_bf16(ours[0], ref[0], "out")
+    hold_bf16(ours[1], ref[1], "delta")
+    hold_bf16(ours[0], ref_eval, "eval out")
+    for name, a, r in zip(("m", "z"), ours[2:], ref[2:]):
+        np.testing.assert_allclose(np32(a), np32(r), rtol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("flash", [True, False])

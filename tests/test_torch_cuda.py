@@ -47,14 +47,18 @@ plain version on the same card, f32 with TF32 off:
   16-byte alignment; one launch counted on the wrapper of its type.
 
 The bfloat16 forwards (``ct_attention_cm_bf16``, ``ct_attention_bf16``,
-``ct_attention_variant_bf16``, ``ct_attention_variant_unfused_bf16``,
-``ct_attention_serving_bf16``; the bf16 walk
-of ``csrc/ct_attention_bf16.cuh``): within one bf16 step of the largest
+``ct_attention_variant_bf16``, ``ct_attention_variant_unfused_bf16`` on
+the ``wgmma`` tiles of ``csrc/ct_attention_cm.cu``;
+``ct_attention_serving_bf16`` on the bf16 walk of
+``csrc/ct_attention_bf16.cuh``): within one bf16 step of the largest
 output of their plain bf16 versions (``bf16_step``: the two sum in another
 f32 order and the output is rounded to bf16, so a value at a rounding
 boundary moves by a step), at the eval shapes and at the edges of the
-walk's tiles (P = 1, 63, 64, 65, 1001; K = 1, 31, 32, 33, 97; C = 1, 7, 15,
-16, 17, 60, 63), the same bits twice, one launch counted a call; and
+tiles (P = 1, 63, 64, 65, 127, 128, 129, 1001; K = 1, 31, 32, 33, 63, 64,
+65, 97, 127, 128, 129 and the 512 size's 4,964; C = 1, 7, 15, 16, 17, 60,
+63), the same bits twice, one launch counted a call; the prep of k and v
+that they share with the bf16 backwards bit for bit against a torch
+rearrangement into the tile layout, with and without v's ones column; and
 they refuse C = 64 and mixed types; a call that needs a gradient runs the
 bf16 training forward. The unfused variant (the denominator summed in f32
 before the weights' rounding) at the bench's inputs also differs from the
@@ -103,10 +107,11 @@ from ct_tpu_torch.ops.ct_attention import (
     ct_attention_cm_bwd_bf16, ct_attention_cm_bwd_flash_bf16,
     ct_attention_cm_bwd_flash_reference_bf16,
     ct_attention_cm_bwd_reference_bf16, ct_attention_cm_stats_bf16,
-    ct_attention_cm_stats_reference_bf16, ct_attention_reference_bf16,
-    ct_attention_reference_cm_bf16, ct_attention_serving_bf16,
-    ct_attention_serving_reference_bf16, ct_attention_variant_bf16,
-    ct_attention_variant_unfused_bf16,
+    ct_attention_cm_stats_reference_bf16, ct_attention_prep_kv_bf16,
+    ct_attention_reference_bf16, ct_attention_reference_cm_bf16,
+    ct_attention_serving_bf16, ct_attention_serving_reference_bf16,
+    ct_attention_variant_bf16, ct_attention_variant_unfused_bf16,
+    prep_kv_reference_bf16,
 )
 from ct_tpu_torch.ops.ct_attention import (
     ct_attention, ct_attention_bwd, ct_attention_bwd_reference,
@@ -754,7 +759,13 @@ def test_device_augment_on_the_card_matches_the_cpu(cuda, b, canvas,
 
 BF16_SHAPES = [(8, 15, 11620, 1858), (8, 60, 11620, 1858), (1, 1, 1, 1),
                (2, 7, 63, 31), (1, 15, 64, 32), (2, 16, 65, 33),
-               (1, 17, 1001, 97), (2, 60, 64, 1), (1, 63, 1001, 33)]
+               (1, 17, 1001, 97), (2, 60, 64, 1), (1, 63, 1001, 33),
+               # one below, at and one past the forwards' 64-row tiles of
+               # anchors (a block's) and of keys (a staged tile's)
+               (2, 15, 63, 63), (1, 60, 64, 64), (2, 16, 65, 65),
+               (1, 7, 127, 127), (2, 60, 128, 128), (1, 63, 129, 129),
+               # the 512 size: P·V over 4,964 keys, a rounded add a tile
+               (1, 60, 4096, 4964)]
 
 
 def bf16_inputs(seed, b, c, p, k, device, scale=1.0):
@@ -795,6 +806,22 @@ def test_bf16_forwards_match_plain_versions(cuda, path, b, c, p, k):
     assert torch.equal(first, second)
     err = (first.float() - ref.float()).abs().max().item()
     assert err <= bf16_step(ref.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("b,c,k", [(2, 15, 63), (1, 16, 64), (2, 60, 65),
+                                   (1, 63, 129), (1, 1, 1)])
+@pytest.mark.parametrize("ones", [True, False])
+def test_bf16_prep_writes_the_tile_layout(cuda, b, c, k, ones):
+    """The bf16 kernels' shared prep (``prep_kv``): its k and v tiles, with
+    and without v's ones column, equal a torch rearrangement of the
+    zero-padded tensors into the swizzled tile layout (``wg::at``)."""
+    _, kk, v, _, _ = bf16_inputs(c + k, b, c, 7, k, cuda)
+    before = ct_attention_prep_kv_bf16.launches
+    kp, vp = ct_attention_prep_kv_bf16(kk, v, ones)
+    ref = prep_kv_reference_bf16(kk, v, ones)
+    torch.cuda.synchronize()
+    assert ct_attention_prep_kv_bf16.launches == before + 1
+    assert torch.equal(kp, ref[0]) and torch.equal(vp, ref[1])
 
 
 BF16_SERVING_SHAPES = [(8, 15, 11620, 1858, 5), (8, 60, 11620, 1858, 20),
