@@ -9,7 +9,8 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
 2. build   every CUDA source of the port, built with nvcc from csrc/,
            one nvcc each, all started together; ptxas's registers and
            spill bytes of every kernel instantiation, under its name, and
-           the spill bytes of each source in all, which must be 0.
+           the spill bytes of each source in all, which must be 0; the
+           serving head's bf16 kernel's registers at each width.
 3. kernel  each kernel on the card against its plain PyTorch version, f32
            with TF32 off: ``ct_attention_cm`` (eval forward) at the eval
            path's shapes (B=8, C=15), at the transfer width (C=60) and at
@@ -58,15 +59,19 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            ragged shape, timed at [64, 64, 300, 300] beside
            ``threshold_backward`` and the channel sum, in float32 and (row
            9's bf16 kernel, the type the JAX bench feeds it) in bfloat16.
-           bf16 (the forwards on ``wgmma`` tiles of
-           ``csrc/ct_attention_cm.cu``, the serving head on the bf16 walk
-           of ``csrc/ct_attention_bf16.cuh``; the prep of k and v that the
-           forwards and backwards share, ``ct_attention_prep_kv_bf16``,
-           bit for bit against its plain version at the train step's
-           shapes, with and without v's ones column):
+           bf16 (the forwards of ``csrc/ct_attention_cm.cu`` and the
+           serving head of ``csrc/ct_attention_serving.cu``, all on
+           ``wgmma`` tiles; the prep of k and v that they and the
+           backwards share, ``ct_attention_prep_kv_bf16``, bit for bit
+           against its plain version at the train step's shapes, with and
+           without v's ones column):
            ``ct_attention_cm_bf16`` (row 1) at B=8 with C=15 and 60 and
            ragged, ``ct_attention_serving_bf16`` (row 6) at B=8 with
-           C=15/N=5 and C=60/N=20 and ragged, ``ct_attention_bf16`` and
+           C=15/N=5 and C=60/N=20 and ragged, and at the JAX bench's
+           B=128 (C=60/N=20, timed; its first 8 images equal bit for bit
+           to the kernel on those 8 alone, which are held to the plain
+           version, whose scores would take 11 GB at B=128);
+           ``ct_attention_bf16`` and
            ``ct_attention_variant_bf16`` (rows 5 and 10) and
            ``ct_attention_variant_unfused_bf16`` (row 10's unfused
            float32-exponent body, which must differ from the fused
@@ -418,6 +423,28 @@ def phase_build() -> dict:
                if r["spill_bytes"]}
     if spilled:
         raise AssertionError(f"kernels spill registers: {spilled}")
+    serving = out["ct_attention_serving"]
+    if serving["built"]:   # a library reused from an earlier build has no log
+        name = "ct_attention_serving_bf16_kernel"
+        out["registers"] = {name: kernel_registers(serving["ptxas"], name)}
+    return out
+
+
+def kernel_registers(ptxas, kernel: str) -> dict:
+    """ptxas's registers of each instantiation ``kernel<CP>`` in a
+    source's build lines: {"CP": registers}."""
+    out, cp = {}, None
+    for ln in ptxas:
+        m = re.search(r"Function properties for \S*?" + kernel
+                      + r"ILi(\d+)E", ln)
+        if "Function properties for" in ln:
+            cp = m.group(1) if m else None
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cp is not None:
+            out[cp] = int(m.group(1))
+            cp = None
+    if not out:
+        raise AssertionError(f"no registers of {kernel} in the build log")
     return out
 
 
@@ -864,9 +891,9 @@ def profiled_events(fn, iters: int = 1) -> list:
     a window opened shortly after an earlier one loses the first kernel
     records it holds, more the longer the process has run, whatever their
     length (a probe that logged each window's records lost the leading
-    markers, then the bf16 flash backward's ``pad_kv``, ``prep_kernel``
-    and ``dq_kernel`` in turn). With a pause of PROFILE_PAUSE_S on the host
-    before the window opens and LEAD_MARKERS short markers
+    markers, then the bf16 flash backward's first three kernels in
+    turn). With a pause of PROFILE_PAUSE_S on the host before the window
+    opens and LEAD_MARKERS short markers
     (``torch.cuda._sleep``'s ``spin_kernel``, left out of the result)
     ahead of the calls, the probe's windows lost none."""
     import torch
@@ -1215,24 +1242,40 @@ def bf16_prep_case(rng, b, c, kk) -> dict:
     return res
 
 
-def bf16_serving_case(rng, b, c, p, kk, n, time_it: bool) -> dict:
-    """``ct_attention_serving_bf16`` (row 6 in bf16, the ``--int8 --bf16``
-    serving path) against its plain bf16 version; timed beside the
-    unfused head in library calls on the same bf16 inputs."""
+def bf16_serving_inputs(rng, b, c, p, kk, n) -> tuple:
+    """Seeded bf16 conf, k, v, Wθ, f32 bθ and wz, and bf16 OBJ_Target of
+    the serving head on the card."""
     import torch
-    import torch.nn.functional as F
-
-    from ct_tpu_torch.ops.ct_attention import (
-        ct_attention_serving, ct_attention_serving_bf16,
-        ct_attention_serving_reference_bf16,
-    )
 
     bf = torch.bfloat16
     t = lambda *shape, scale=1.0: device_normal(rng, shape, scale)
     conf, k, v = t(b, c, p, scale=3.0), t(b, kk, c, scale=0.3), t(b, kk, c)
     wt, bt, wz = t(c, c, scale=0.2), t(c, scale=0.1), t(c, scale=0.3)
-    obj = t(n, c)
-    args = (conf.to(bf), k.to(bf), v.to(bf), wt.to(bf), bt, wz, obj.to(bf))
+    return (conf.to(bf), k.to(bf), v.to(bf), wt.to(bf), bt, wz,
+            t(n, c).to(bf))
+
+
+def serving_bf16_bound(b, c, p, kk, n) -> dict:
+    """Row 6's bounds in bf16: 2·B·P·C·(2K+C+N) products, B·P·K
+    exponentials, conf, k, v, Wθ, OBJ and out in bf16, bθ and wz f32."""
+    return bf16_bound(2 * b * p * c * (2 * kk + c + n), b * p * kk,
+                      2 * (b * c * p + b * n * p + 2 * b * kk * c + c * c
+                           + n * c) + 8 * c)
+
+
+def bf16_serving_case(rng, b, c, p, kk, n, time_it: bool) -> dict:
+    """``ct_attention_serving_bf16`` (row 6 in bf16, the ``--int8 --bf16``
+    serving path) against its plain bf16 version; timed beside the
+    unfused head in library calls on the same bf16 inputs."""
+    import torch
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_serving, ct_attention_serving_bf16,
+        ct_attention_serving_reference_bf16,
+    )
+    from ct_tpu_torch.scripts.bench_fwd_bf16 import serving_library
+
+    args = bf16_serving_inputs(rng, b, c, p, kk, n)
     with torch.inference_mode():
         res = bf16_check(
             "ct_attention_serving_bf16", ct_attention_serving(*args),
@@ -1241,26 +1284,50 @@ def bf16_serving_case(rng, b, c, p, kk, n, time_it: bool) -> dict:
             B=b, C=c, P=p, K=kk, N=n)
         if not time_it:
             return res
-        x = args[0].transpose(1, 2)                       # [B, P, C]
-
-        def library():
-            # the unfused head in library calls, bf16, row-major
-            q = torch.matmul(x, args[3]) + bt.to(bf) + x
-            a = F.scaled_dot_product_attention(
-                q[:, None], args[1][:, None], args[2][:, None],
-                scale=1.0)[:, 0]
-            nv = x + a * wz.to(bf)
-            nv = nv * torch.rsqrt((nv * nv).sum(-1, keepdim=True))
-            return torch.matmul(nv, args[6].t()) * 5.0
-
         res.update(
             ms=cuda_ms(lambda: ct_attention_serving_bf16(*args), 20),
             plain_ms=cuda_ms(
                 lambda: ct_attention_serving_reference_bf16(*args), 5),
-            library_ms=cuda_ms(library, 20),
-            **bf16_bound(2 * b * p * c * (2 * kk + c + n), b * p * kk,
-                         2 * (b * c * p + b * n * p + 2 * b * kk * c + c * c
-                              + n * c) + 8 * c))
+            library_ms=cuda_ms(serving_library(*args), 20),
+            **serving_bf16_bound(b, c, p, kk, n))
+    return res
+
+
+def bf16_serving_batch_case(rng, b, c, p, kk, n, first: int) -> dict:
+    """``ct_attention_serving_bf16`` at the JAX bench's batch, where its
+    plain version would hold [B, K, P] f32 scores (11 GB at B=128): the
+    first ``first`` images of the batch's scores equal, bit for bit, the
+    kernel's on those images alone (a block owns 64 anchors of one image,
+    so no image sees another), and those are held to the plain version as
+    the B=8 cases are; timed beside the unfused head in library calls,
+    with its bound."""
+    import torch
+
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_serving_bf16, ct_attention_serving_reference_bf16,
+    )
+    from ct_tpu_torch.scripts.bench_fwd_bf16 import serving_library
+
+    args = bf16_serving_inputs(rng, b, c, p, kk, n)
+    head = tuple(a[:first] if a.dim() == 3 else a for a in args)
+    with torch.inference_mode():
+        out = ct_attention_serving_bf16(*args)
+        alone = ct_attention_serving_bf16(*head)
+        res = bf16_check(
+            "ct_attention_serving_bf16", alone,
+            ct_attention_serving_reference_bf16(*head),
+            same_bits(lambda: (ct_attention_serving_bf16(*args),)),
+            B=b, C=c, P=p, K=kk, N=n, held_images=first)
+        res["batch_equals_alone"] = torch.equal(out[:first], alone)
+        if not res["batch_equals_alone"]:
+            raise AssertionError(f"ct_attention_serving_bf16 at B={b}: its "
+                                 f"first {first} images differ from the "
+                                 f"kernel on them alone: {res}")
+        del out, alone
+        res.update(
+            ms=cuda_ms(lambda: ct_attention_serving_bf16(*args), 10),
+            library_ms=cuda_ms(serving_library(*args), 10),
+            **serving_bf16_bound(b, c, p, kk, n))
     return res
 
 
@@ -1698,6 +1765,9 @@ def phase_kernel(seed: int) -> dict:
                                                  False),
         "bf16_serving_ragged_narrow": bf16_serving_case(rng, 2, 7, 130, 65,
                                                         3, False),
+        # the JAX bench's serving shape (bench.py: transfer, batch 128)
+        "bf16_serving_bench": bf16_serving_batch_case(
+            rng, BENCH_FWD_BATCH, 60, 11620, 1858, 20, 8),
         "bf16_rowmajor": bf16_rowmajor_case(rng, 8, 60, 11620, 1858,
                                             BENCH_FWD_BATCH),
         "bf16_rowmajor_ragged": bf16_rowmajor_case(rng, 3, 15, 1001, 97),
@@ -1767,7 +1837,7 @@ def seeded_images(seed: int, n: int, size: int):
 # profiler gives them: their device time in one profiled step
 PROFILED_KERNELS = ("ct_attention_kernel", "ct_attention_serving_kernel",
                     "nms_kernel", "ct_attention_bf16_kernel",
-                    "ct_attention_serving_bf16_kernel", "pad_kv", "prep_kv")
+                    "ct_attention_serving_bf16_kernel", "prep_kv")
 
 
 def eval_steps(step, x, hw, counts: dict, expected: dict, steps: int,
@@ -3010,7 +3080,11 @@ def kernels_line(results: dict) -> list:
             **at_width(kern["bf16_transfer"], 60)},
         "ct_attention_serving_bf16": {
             **bf16_pipes(kern["bf16_serving_incre"]),
-            **at_width(kern["bf16_serving_transfer"], 60)},
+            **at_width(kern["bf16_serving_transfer"], 60),
+            **{f"{k}_b128_c60": kern["bf16_serving_bench"][k]
+               for k in ("ms", "library_ms", "bound_ms")},
+            "registers": results["build"].get("registers", {}).get(
+                "ct_attention_serving_bf16_kernel")},
         "ct_attention_bf16": bf16_pipes(kern["bf16_rowmajor"]["fwd"]),
         "ct_attention_variant_bf16": bf16_pipes(
             kern["bf16_rowmajor"]["variant"]),

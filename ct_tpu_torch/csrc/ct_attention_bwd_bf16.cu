@@ -105,7 +105,7 @@
 // K: keys past K are zero rows, masked after the exponential in the last
 // tile.
 
-#include "ct_attention_bf16.cuh"
+#include "ct_attention_mma.cuh"
 #include "ct_attention_wgmma.cuh"
 
 namespace {
@@ -297,7 +297,7 @@ prep_q(const uint16_t* __restrict__ q, const uint16_t* __restrict__ g,
               ? __fmul_rn(__uint_as_float(static_cast<uint32_t>(g1) << 16),
                           wz[c + 1])
               : 0.f;
-      wg4[u] = bf::pack(x0, x1);
+      wg4[u] = wg::pack(x0, x1);
     }
     const size_t o = (static_cast<size_t>(b) * Pp + p0 + i) * CP +
                      wg::chunk_at<CP>(i, ch) * 8;
@@ -469,10 +469,10 @@ stats_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ gp,
       const uint32_t gv2 = *reinterpret_cast<const uint32_t*>(gpb + at);
       const uint32_t g2 = *reinterpret_cast<const uint32_t*>(grb + at);
       const float d0 = o[4 * i + 2 * h], d1 = o[4 * i + 2 * h + 1];
-      cs[h] = fmaf(bf::unpack_lo(gv2), d0, cs[h]);
-      cs[h] = fmaf(bf::unpack_hi(gv2), d1, cs[h]);
-      col[i][0] = fmaf(bf::unpack_lo(g2), d0, col[i][0]);
-      col[i][1] = fmaf(bf::unpack_hi(g2), d1, col[i][1]);
+      cs[h] = fmaf(wg::unpack_lo(gv2), d0, cs[h]);
+      cs[h] = fmaf(wg::unpack_hi(gv2), d1, cs[h]);
+      col[i][0] = fmaf(wg::unpack_lo(g2), d0, col[i][0]);
+      col[i][1] = fmaf(wg::unpack_hi(g2), d1, col[i][1]);
     }
   }
   const size_t all = static_cast<size_t>(B) * Pp;
@@ -913,7 +913,7 @@ extern "C" int ct_attention_cm_bwd_flash_bf16(
     int C, int P, int K, void* stream) {
   if (bad_shape(B, C, P, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int CP = bf::padded_classes(C);
+  const int CP = wg::padded_classes(C);
   const int Pp = whole_tiles(P), Kp = whole_tiles(K);
   const Scratch sc(kvp, qg, stats, B, CP, Kp, Pp);
   if (CP == 16) {
@@ -932,7 +932,7 @@ static int blockwise_entry(const void* q, const void* k, const void* v,
                            int K, void* stream) {
   if (bad_shape(B, C, P, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int CP = bf::padded_classes(C);
+  const int CP = wg::padded_classes(C);
   const int Pp = whole_tiles(P), Kp = whole_tiles(K);
   const Scratch sc(kvp, qg, stats, B, CP, Kp, Pp);
   if (CP == 16) {

@@ -50,43 +50,39 @@
 // bfloat16 (ct_attention_cm_bf16, ct_attention_cm_stats_bf16,
 // ct_attention_bf16, ct_attention_variant_bf16 and
 // ct_attention_variant_unfused_bf16): the same function on bf16 q, k, v
-// and base, f32 wz, bf16 out, with the JAX kernels' rounding points (listed
-// in ct_attention_bf16.cuh: f32 scores of bf16 products, the weights
-// rounded to bf16 against the final max, the denominator from v's ones
-// column), on warpgroup wgmma tiles (ct_attention_wgmma.cuh). Its bound is
-// its B*P*K exponentials on the special-function units at C=15 and its
+// and base, f32 wz, bf16 out, with the JAX kernels' rounding points:
+//   s[j] = sum_c k[j,c] q[c]            bf16 operands, f32 sums
+//   e[j] = bf16(exp(s[j] - max_j s))    against the row's final max
+//   num  = sum_j e[j] v[j,:], den = sum_j e[j]   f32 sums of exact bf16
+//                                       products, den from a ones column
+// on warpgroup wgmma tiles (ct_attention_wgmma.cuh). Its bound is its
+// B*P*K exponentials on the special-function units at C=15 and its
 // products at C=60 (PERF.md §6). Design:
-//  * prep_kv (shared with the bf16 backward) lays k and v out as 64-key
-//    tiles in the swizzled layout, zero past C and K, v's column C one;
-//    one warpgroup (128 threads) owns 64 anchors of one image and stages
+//  * prep_kv (shared with the bf16 backward and the serving head) lays k
+//    and v out as 64-key tiles in the swizzled layout, zero past C and K,
+//    v's column C one;
+//  * one warpgroup (128 threads) owns 64 anchors of one image and stages
 //    their q rows once as a tile of the same layout (read along the
 //    anchors, or the rows' contiguous classes, while the first keys land).
 //    q as A fragments held in registers, read once, gave wrong sums on the
 //    card at CP=64 for every tile after the first of walk 2 (reloaded
 //    before each tile's scores, they did not); the tile costs 8 KB of
 //    shared memory and frees 16 registers;
-//  * the keys come in tiles of 64, each staged by one cp.async.bulk that
-//    completes on an mbarrier, two stages; thread 0 refills a stage once
-//    the block has passed the barrier that ends its products;
-//  * walk 1, the max: S = Q K^T (m64n64k16, both tiles read K-major), the
-//    row max of the live keys over a row's four threads;
-//  * walk 2: S again, e = 2^(s log2 e - m log2 e) (one FMA; the variant
-//    rounds s - m to bf16 first and then scales it), keys past K masked,
-//    e rounded to bf16 and packed two by two into A fragments by the
+//  * the two walks over 64-key tiles staged by cp.async.bulk, two stages
+//    (wg::walk, shared with the serving head): walk 1 the row max of the
+//    scores, walk 2 the scores again, the weights rounded to bf16 by the
 //    conversion unit (one cvt a pair; on the integer pipe the kernel took
-//    12-24% longer), O += P V from the same staged v tile read MN-major,
-//    its numerators and (column C) denominator in one product; each
-//    tile's product in a fresh accumulator, added with rounded f32 adds
-//    (the tensor cores truncate their accumulator; ct_attention_mma.cuh).
-//    The unfused variant (kSumF32) sums the unrounded f32 weights in
-//    registers beside the product and divides by that sum instead.
+//    12-24% longer) and O += P V, a fresh accumulator a tile added with
+//    rounded f32 adds (the tensor cores truncate their accumulator;
+//    ct_attention_mma.cuh). The unfused variant (kSumF32) sums the
+//    unrounded f32 weights in registers beside the product and divides by
+//    that sum instead.
 // The epilogue divides by the denominator, out = bf16(base + wz * num /
 // den), rounded to nearest even; the training forward (`_kernel_cm_stats`
 // on bf16) also stores delta = num / den rounded to bf16, as JAX saves it
 // in base's type, and m (natural units) and z = den in f32, for the bf16
 // flash backward (ct_attention_bwd_bf16.cu).
 
-#include "ct_attention_bf16.cuh"
 #include "ct_attention_mma.cuh"
 #include "ct_attention_wgmma.cuh"
 
@@ -264,8 +260,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using wg::kTile;
 
-constexpr int kStages = 2;
-
 // Blocks an SM that the launch bounds ask registers for (up to 168 a
 // thread at three, 102 at five): at CP=64 a thread holds a tile's scores
 // (32 f32) and the running and the tile's fresh P V (32 each). ptxas on
@@ -275,11 +269,6 @@ constexpr int kStages = 2;
 // runs 10% faster (PERF.md §6). CP=16: 62-82.
 template <int CP, bool kSumF32>
 constexpr int kFwdBlocks = CP <= 16 ? 4 : kSumF32 ? 5 : 3;
-
-// Bytes of dynamic shared memory: the q tile, two stages of a k and a v
-// tile, and the slack to align them.
-template <int CP>
-constexpr int kFwdSmem = (1 + kStages * 2) * wg::kTileBytes<CP> + 1024;
 
 // One warpgroup, 64 anchors of image b. kp and vp: the keys and values in
 // the tile layout, Kp keys (whole tiles), vp's column C the ones.
@@ -296,42 +285,22 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
   static_assert(!(kStats && kRowMajor), "statistics are class-major only");
   static_assert(!kSumF32 || kRowMajor, "the unfused variant is row-major");
   constexpr int TB = wg::kTileBytes<CP>;
-  constexpr int kStage = 2 * TB;  // a k tile and a v tile
-  static_assert(CP * kStageStride * 4 <= TB + kStages * kStage &&
-                    kTile * (CP + 1) * 4 <= TB + kStages * kStage,
+  static_assert(CP * kStageStride * 4 <= TB + wg::KeyTiles<CP>::kBytes &&
+                    kTile * (CP + 1) * 4 <= TB + wg::KeyTiles<CP>::kBytes,
                 "the epilogue's stage fits in the tiles' bytes");
   extern __shared__ uint8_t dyn[];
-  __shared__ __align__(8) uint64_t bar[kStages];
+  __shared__ __align__(8) uint64_t bar[wg::KeyTiles<CP>::kStages];
   uint8_t* tiles_s = wg::align_1024(dyn);
   bf16* sq = reinterpret_cast<bf16*>(tiles_s);
-  auto stage_k = [&](int s) { return tiles_s + TB + s * kStage; };
-  auto stage_v = [&](int s) { return tiles_s + TB + s * kStage + TB; };
   const int tid = threadIdx.x;
   const int w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int b = blockIdx.y;
   const int p0 = blockIdx.x * kTile;
-  const int tiles = Kp / kTile;
-  const int loads = 2 * tiles;  // walk 1 the k tiles, walk 2 k and v
-  const bf16* kb = kp + static_cast<size_t>(b) * Kp * CP;
-  const bf16* vb = vp + static_cast<size_t>(b) * Kp * CP;
-
-  if (tid == 0) {
-#pragma unroll
-    for (int i = 0; i < kStages; ++i) wg::bar_init(&bar[i], 1);
-    wg::bar_init_fence();
-  }
-  __syncthreads();
-  auto issue = [&](int n) {
-    const int s = n % kStages;
-    const size_t off = static_cast<size_t>(n % tiles) * kTile * CP;
-    const bool values = n >= tiles;
-    wg::bar_expect(&bar[s], values ? 2 * TB : TB);
-    wg::bulk_copy(stage_k(s), kb + off, TB, &bar[s]);
-    if (values) wg::bulk_copy(stage_v(s), vb + off, TB, &bar[s]);
-  };
-  if (tid == 0) {
-    for (int n = 0; n < kStages && n < loads; ++n) issue(n);
-  }
+  const wg::KeyTiles<CP> ks{tiles_s + TB, bar,
+                            kp + static_cast<size_t>(b) * Kp * CP,
+                            vp + static_cast<size_t>(b) * Kp * CP,
+                            Kp / kTile};
+  ks.start();
 
   // the block's q rows into the q tile while the first keys land: read
   // along the anchors (class-major) or the rows' contiguous classes, zero
@@ -350,77 +319,8 @@ ct_attention_bf16_kernel(const bf16* __restrict__ q,
   wg::fence_proxy_async();
   __syncthreads();
 
-  const uint64_t dq = wg::desc<CP>(sq);
-  // row h of this thread: 16w + g + 8h of the block; mx its max over the
-  // thread's keys until the end of walk 1, the row's after it
-  float mx[2] = {-INFINITY, -INFINITY}, ml[2] = {0.f, 0.f};
-  float lsum[2] = {0.f, 0.f};  // kSumF32: the unrounded weights' sums
-  float o[CP / 2];
-  wg::zero(o);
-#pragma unroll 1
-  for (int n = 0; n < loads; ++n) {
-    const int s = n % kStages;
-    wg::bar_wait(&bar[s], (n / kStages) & 1);
-    __syncwarp();
-    const int j0 = (n % tiles) * kTile;
-    const bool ragged = j0 + kTile > K;
-    float sc[32];
-    wg::fence();
-    wg::scores<CP>(sc, dq, wg::desc<CP>(stage_k(s)));
-    wg::commit();
-    wg::wait<0>();
-    wg::keep(sc);
-    if (n < tiles) {
-      // walk 1: the max of the live keys' scores
-      if (ragged) wg::mask_keys(sc, j0, K, t, -INFINITY);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-      }
-      if (n == tiles - 1) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-          ml[h] = __fmul_rn(mx[h], wg::kLog2e);
-        }
-      }
-    } else {
-      // walk 2: the weights against the final max, O += bf(e) V
-      if (kExpBf16) {  // s - m rounded to bf16 two at a time (one cvt)
-#pragma unroll
-        for (int i = 0; i < 32; i += 2) {  // elements i, i + 1: one row
-          const int h = (i >> 1) & 1;
-          const uint32_t d2 = bf::pack(sc[i] - mx[h], sc[i + 1] - mx[h]);
-          sc[i] = wg::ex2(__fmul_rn(__uint_as_float(d2 << 16), wg::kLog2e));
-          sc[i + 1] = wg::ex2(
-              __fmul_rn(__uint_as_float(d2 & 0xffff0000u), wg::kLog2e));
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          sc[i] = wg::ex2(__fmaf_rn(sc[i], wg::kLog2e, -ml[(i >> 1) & 1]));
-        }
-      }
-      if (ragged) wg::mask_keys(sc, j0, K, t);
-      if (kSumF32) {  // the weights before their rounding
-#pragma unroll
-        for (int i = 0; i < 32; ++i) lsum[(i >> 1) & 1] += sc[i];
-      }
-      uint32_t a[4][4];
-      wg::to_frags(sc, a);
-      float ot[CP / 2];
-      wg::fence();
-      wg::rows_product<CP>(ot, a, wg::desc<CP>(stage_v(s)));
-      wg::commit();
-      wg::wait<0>();
-      wg::keep(ot);
-      wg::add_to(o, ot);
-    }
-    // every thread is done with stage s: refill it
-    __syncthreads();
-    if (tid == 0 && n + kStages < loads) issue(n + kStages);
-  }
+  float mx[2], lsum[2], o[CP / 2];
+  wg::walk<CP, kExpBf16, kSumF32>(ks, wg::desc<CP>(sq), K, mx, lsum, o);
 
   // the numerators and (column C) the denominator into the stage, which
   // the tiles' bytes hold (no copy is in flight); element 4i + 2h + u of
@@ -497,7 +397,7 @@ int launch_bf16(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int CP = bf::padded_classes(C);
+  const int CP = wg::padded_classes(C);
   const int Kp = wg::whole_tiles(K);
   bf16* kp = static_cast<bf16*>(scratch);
   bf16* vp = kp + static_cast<size_t>(B) * Kp * CP;
@@ -517,12 +417,12 @@ int launch_bf16(const void* q, const void* k, const void* v,
   float* zf = static_cast<float*>(z);
   if (CP == 16) {
     ct_attention_bf16_kernel<16, kRowMajor, kExpBf16, kStats, kSumF32>
-        <<<grid, wg::kThreads, kFwdSmem<16>, st>>>(qb, kp, vp, bb, wf, ob, db,
-                                                   mf, zf, C, P, K, Kp);
+        <<<grid, wg::kThreads, wg::kWalkSmem<16>, st>>>(
+            qb, kp, vp, bb, wf, ob, db, mf, zf, C, P, K, Kp);
   } else {
     ct_attention_bf16_kernel<64, kRowMajor, kExpBf16, kStats, kSumF32>
-        <<<grid, wg::kThreads, kFwdSmem<64>, st>>>(qb, kp, vp, bb, wf, ob, db,
-                                                   mf, zf, C, P, K, Kp);
+        <<<grid, wg::kThreads, wg::kWalkSmem<64>, st>>>(
+            qb, kp, vp, bb, wf, ob, db, mf, zf, C, P, K, Kp);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -603,7 +503,7 @@ extern "C" int ct_attention_prep_kv_bf16(const void* k, const void* v,
   const int Kp = wg::whole_tiles(K);
   bf16* kb = static_cast<bf16*>(kp);
   bf16* vb = static_cast<bf16*>(vp);
-  if (bf::padded_classes(C) == 16) {
+  if (wg::padded_classes(C) == 16) {
     return ones ? wg::launch_prep_kv<16, true>(k, v, kb, vb, B, K, Kp, C, st)
                 : wg::launch_prep_kv<16, false>(k, v, kb, vb, B, K, Kp, C,
                                                 st);

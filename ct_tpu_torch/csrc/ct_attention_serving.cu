@@ -51,18 +51,40 @@
 // bfloat16 (ct_attention_serving_bf16): conf, k, v, Wt and obj bf16, bt
 // and wz f32, out bf16, with the JAX kernel's rounding points:
 //   q     = bf16(Wt^T conf + bt + conf)    f32 sums, rounded once
-//   e     = bf16(exp(s - max s))           (the bf16 walk)
+//   s     = k . q                          f32 sums of exact bf16 products
+//   e     = bf16(exp(s - max s))           against the row's final max
 //   novel = bf16(n / ||n||_2),  n = conf + wz * num / den    (f32, rsqrt)
 //   out   = bf16(scale * obj . novel)      f32 sums of exact bf16 products
-// on the bf16 walk (ct_attention_bf16.cuh). Wt is staged transposed
-// [out][in] bf16 and q = conf Wt is one m16n8k16 product a tile: its
-// accumulator is the walk's A layout as it stands (chunks 2kk and 2kk+1 of
-// the output classes are the A fragment of classes 16kk .. 16kk+15), and
-// the residual conf is read from the conf fragments, which hold the same
-// (row, class) pairs. Its bound, as the forward's, is its exponentials.
+// on the bf16 forwards' warpgroup wgmma tiles (ct_attention_wgmma.cuh).
+// Its bound, as the forwards', is its exponentials at C=15 and its
+// products at C=60. Design:
+//  * prep_kv (the forwards') lays k and v out as whole 64-key swizzled
+//    tiles, v's column C one (the denominator);
+//  * one warpgroup owns 64 anchors of one image. Prologue: it stages their
+//    conf rows as a [64][CP] tile (read along the anchors) and Wt
+//    transposed (output classes as rows, zero past C) as a second tile in
+//    stage 0's v tile, which walk 1's first loads leave alone, while the
+//    first key tiles land; conf Wt is one wgmma product (m64n64k16, both
+//    tiles K-major; at CP=16 its output columns past 16 are zero rows of
+//    the Wt tile, and ignored); each thread adds bt and conf (read from the
+//    conf tile at its accumulator's (row, class)) and writes bf16 q over
+//    conf in place, so that q is the walks' operand tile. q stays in shared
+//    memory: as wgmma A fragments held in registers across products it gave
+//    wrong sums at CP=64 in the forwards (PERF.md §6);
+//  * the forwards' two walks (wg::walk): the row max, then the bf16
+//    weights and O += P V, its numerators and denominator in one product
+//    a tile, a fresh accumulator a tile added with rounded f32 adds;
+//  * epilogue: the numerators and denominator staged in f32 as the
+//    forwards' class-major epilogue stages them, obj and wz beside them;
+//    each anchor taken by two threads, as the f32 head's, both reading
+//    conf again along the anchors for the residual and taking novel and
+//    its norm, each computing half of the N scores on the FP32 pipes.
+// Ragged P (rows past P compute on conf = 0 and store nothing) and ragged
+// K (the last tile's dead keys masked) as in the forwards. No atomics: two
+// launches give the same bits.
 
-#include "ct_attention_bf16.cuh"
 #include "ct_attention_mma.cuh"
+#include "ct_attention_wgmma.cuh"
 
 namespace {
 
@@ -267,19 +289,21 @@ extern "C" int ct_attention_serving_f32(const void* conf, const void* k,
 
 namespace {
 
-using ct::bf::bf16;
+using bf16 = __nv_bfloat16;
+using wg::kTile;
 
-// shared memory of a bf16 block, in bytes: the walk's tiles (the staged Wt
-// [CP][CP + 8] bf16 before them), then the epilogue's stage [CP][68] and
-// obj [kMaxN][CP] f32; 8.3 KB at CP=16, 33 KB at CP=64
+// Blocks an SM that the launch bounds ask registers for: up to 102 a
+// thread at CP=64 (five blocks, which the 41 KB of shared memory allow),
+// 128 at CP=16. Held to three, ptxas on an H100 gave the CP=64 kernel 127
+// registers, four blocks an SM, and it ran 12% slower at B=128 (PERF.md
+// §6); at five it takes 96 without a spill. CP=16: 68.
 template <int CP>
-constexpr int kServingBf16Bytes =
-    ct::bf::kWalkBytes<CP> > 4 * (CP * kStageStride + kMaxN * CP)
-        ? ct::bf::kWalkBytes<CP>
-        : 4 * (CP * kStageStride + kMaxN * CP);
+constexpr int kServingBlocks = CP <= 16 ? 4 : 5;
 
+// One warpgroup, 64 anchors of image b. kp and vp: the keys and values in
+// the tile layout, Kp keys (whole tiles), vp's column C the ones.
 template <int CP>
-__global__ void __launch_bounds__(kThreads, ct::bf::kMinBlocks<CP>)
+__global__ void __launch_bounds__(wg::kThreads, kServingBlocks<CP>)
 ct_attention_serving_bf16_kernel(const bf16* __restrict__ conf,
                                  const bf16* __restrict__ kp,
                                  const bf16* __restrict__ vp,
@@ -288,103 +312,96 @@ ct_attention_serving_bf16_kernel(const bf16* __restrict__ conf,
                                  const float* __restrict__ wz,
                                  const bf16* __restrict__ obj,
                                  bf16* __restrict__ out, int C, int P, int K,
-                                 int N, float scale) {
-  constexpr int S = ct::bf::kStride<CP>;
-  static_assert(CP * S * 2 <= ct::bf::kWalkBytes<CP>,
-                "Wt fits in the walk's shared memory");
-  __shared__ __align__(16) unsigned char smem_raw[kServingBf16Bytes<CP>];
+                                 int Kp, int N, float scale) {
+  constexpr int TB = wg::kTileBytes<CP>;
+  static_assert(4 * (CP * kStageStride + kMaxN * CP) <=
+                    TB + wg::KeyTiles<CP>::kBytes,
+                "the epilogue's stage fits in the tiles' bytes");
+  extern __shared__ uint8_t dyn[];
+  __shared__ __align__(8) uint64_t bar[wg::KeyTiles<CP>::kStages];
   __shared__ float wzs[CP];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  float* stagef = reinterpret_cast<float*>(smem_raw);
-  constexpr int NK = CP / 16;
-  constexpr int NN = CP / 8;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int gq = lane / 4, tq = lane % 4;
+  uint8_t* tiles_s = wg::align_1024(dyn);
+  bf16* sq = reinterpret_cast<bf16*>(tiles_s);
+  const int tid = threadIdx.x;
+  const int w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kRows;
+  const int p0 = blockIdx.x * kTile;
+  const wg::KeyTiles<CP> ks{tiles_s + TB, bar,
+                            kp + static_cast<size_t>(b) * Kp * CP,
+                            vp + static_cast<size_t>(b) * Kp * CP,
+                            Kp / kTile};
+  bf16* sw = reinterpret_cast<bf16*>(ks.v_tile(0));
+  ks.start();
 
-  // Wt transposed: smem[o * S + i] = Wt[i][o], zero past C
-  for (int e = threadIdx.x; e < CP * CP; e += kThreads) {
-    const int o = e / CP;
-    const int i = e % CP;
-    smem[o * S + i] = (i < C && o < C) ? wt[i * C + o]
-                                       : __float2bfloat16_rn(0.f);
+  // conf rows into the q tile (read along the anchors, zero past P and
+  // C) and Wt transposed into sw (row o = output class, the input classes
+  // along it, zero past C; read along the output classes)
+  for (int e = tid; e < kTile * CP; e += wg::kThreads) {
+    const int c = e / kTile;
+    const int i = e % kTile;
+    const int p = p0 + i;
+    bf16 x = __float2bfloat16_rn(0.f);
+    if (p < P && c < C) x = conf[(static_cast<size_t>(b) * C + c) * P + p];
+    sq[wg::at<CP>(i, c)] = x;
+    const bool live = c < C && i < C;  // input class c, output class i
+    sw[wg::at<CP>(i, c)] = live ? wt[c * C + i] : __float2bfloat16_rn(0.f);
   }
+  wg::fence_proxy_async();
   __syncthreads();
 
-  // q = conf Wt + bt + conf, rounded to bf16, as the walk's A operand
-  uint32_t qa[NK][4];
-  {
-    uint32_t x[NK][4];
-    ct::bf::load_rows<CP>(conf, b, p0 + warp * 16, C, P, gq, tq, x);
-    float d[NN][4];
+  // theta: conf Wt, element j of th at row 16w + g + 8((j >> 1) & 1),
+  // output class 8(j / 4) + 2t + (j & 1)
+  float th[32];
+  wg::fence();
+  wg::scores<CP>(th, wg::desc<CP>(sq), wg::desc<CP>(sw));
+  wg::commit();
+  wg::wait<0>();
+  wg::keep(th);
+  __syncthreads();  // every warp's product has read the conf tile
+  // q = bf16(th + bt + conf) over conf, a pair of classes at a time
 #pragma unroll
-    for (int nn = 0; nn < NN; ++nn) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) d[nn][r] = 0.f;
-    }
-    // ldmatrix rows: output classes 8nn + (lane & 7) (+8 for lanes 16-31),
-    // input classes 16kk (+8 for lanes 8-15 and 24-31)
-    const int lrow = (lane & 7) + ((lane >> 4) << 3);
-    const int lcol = ((lane >> 3) & 1) << 3;
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < NN; nn += 2) {
-        uint32_t r4[4];
-        ct::bf::ldmatrix_x4<false>(r4, smem + (8 * nn + lrow) * S + 16 * kk +
-                                           lcol);
-        const uint32_t b0[2] = {r4[0], r4[1]};
-        const uint32_t b1[2] = {r4[2], r4[3]};
-        ct::bf::mma(d[nn], x[kk], b0);
-        ct::bf::mma(d[nn + 1], x[kk], b1);
-      }
-    }
-    // element r of d[nn]: row g + 8(r/2), class 8nn + 2t + r%2; the conf
-    // value of that (row, class) is half r%2 of x[nn/2][2(nn%2) + r/2]
-#pragma unroll
-    for (int nn = 0; nn < NN; ++nn) {
-      float qv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int c = 8 * nn + 2 * tq + r % 2;
-        const uint32_t xw = x[nn / 2][2 * (nn % 2) + r / 2];
-        const float cf = r % 2 ? ct::bf::unpack_hi(xw) : ct::bf::unpack_lo(xw);
-        qv[r] = __fadd_rn(__fadd_rn(d[nn][r], c < C ? bt[c] : 0.f), cf);
-      }
-      qa[nn / 2][2 * (nn % 2) + 0] = ct::bf::pack(qv[0], qv[1]);
-      qa[nn / 2][2 * (nn % 2) + 1] = ct::bf::pack(qv[2], qv[3]);
-    }
+  for (int j = 0; j < CP / 2; j += 2) {
+    const int row = 16 * w + g + 8 * ((j >> 1) & 1);
+    const int c = 8 * (j / 4) + 2 * t;
+    uint32_t* at = reinterpret_cast<uint32_t*>(sq + wg::at<CP>(row, c));
+    const uint32_t x = *at;
+    const float b0 = c < C ? bt[c] : 0.f;
+    const float b1 = c + 1 < C ? bt[c + 1] : 0.f;
+    *at = wg::pack(__fadd_rn(__fadd_rn(th[j], b0), wg::unpack_lo(x)),
+                   __fadd_rn(__fadd_rn(th[j + 1], b1), wg::unpack_hi(x)));
   }
+  wg::fence_proxy_async();
+  __syncthreads();
 
-  float o[NN][4], m[2];
-  ct::bf::attend<CP>(qa, kp, vp, b, K, smem, o, m);
+  float mx[2], lsum[2], o[CP / 2];
+  wg::walk<CP, false, false>(ks, wg::desc<CP>(sq), K, mx, lsum, o);
 
-  // numerators and denominator into the stage; obj and wz beside it
-  __syncthreads();  // the key tiles are no longer read
+  // the numerators and (column C) the denominator into the stage, which
+  // the tiles' bytes hold (no copy is in flight): element 4i + 2h + u of
+  // o is row 16w + g + 8h, class 8i + 2t + u; obj and wz beside them
+  float* stagef = reinterpret_cast<float*>(tiles_s);
 #pragma unroll
-  for (int nn = 0; nn < NN; ++nn) {
+  for (int i = 0; i < CP / 8; ++i) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int row = warp * 16 + gq + (r / 2) * 8;
-      const int c = 8 * nn + 2 * tq + r % 2;
-      stagef[c * kStageStride + row] = o[nn][r];
+      const int row = 16 * w + g + 8 * (r / 2);
+      const int c = 8 * i + 2 * t + r % 2;
+      stagef[c * kStageStride + row] = o[4 * i + r];
     }
   }
   float* objs = stagef + CP * kStageStride;
-  for (int e = threadIdx.x; e < N * CP; e += kThreads) {
+  for (int e = tid; e < N * CP; e += wg::kThreads) {
     const int n = e / CP;
     const int c = e % CP;
     objs[e] = c < C ? __bfloat162float(obj[n * C + c]) : 0.f;
   }
-  for (int c = threadIdx.x; c < CP; c += kThreads) {
+  for (int c = tid; c < CP; c += wg::kThreads) {
     wzs[c] = c < C ? wz[c] : 0.f;
   }
   __syncthreads();
 
   // anchor i of the block, by threads i and i + 64
-  const int i = threadIdx.x % kRows;
+  const int i = tid % kTile;
   const int p = p0 + i;
   if (p >= P) return;
   const bf16* confp = conf + static_cast<size_t>(b) * C * P + p;
@@ -404,28 +421,48 @@ ct_attention_serving_bf16_kernel(const bf16* __restrict__ conf,
   for (int c = 0; c < CP; ++c) nv[c] = ct::bf16_round(__fmul_rn(nv[c], rn));
 
   bf16* outp = out + static_cast<size_t>(b) * N * P + p;
-  for (int n = threadIdx.x / kRows; n < N; n += kThreads / kRows) {
+  for (int n = tid / kTile; n < N; n += wg::kThreads / kTile) {
     const float4* orow = reinterpret_cast<const float4*>(objs + n * CP);
     float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
     for (int c4 = 0; c4 < CP / 4; ++c4) {
-      const float4 w = orow[c4];
-      s0 = fmaf(w.x, nv[4 * c4 + 0], s0);
-      s1 = fmaf(w.y, nv[4 * c4 + 1], s1);
-      s2 = fmaf(w.z, nv[4 * c4 + 2], s2);
-      s3 = fmaf(w.w, nv[4 * c4 + 3], s3);
+      const float4 v4 = orow[c4];
+      s0 = fmaf(v4.x, nv[4 * c4 + 0], s0);
+      s1 = fmaf(v4.y, nv[4 * c4 + 1], s1);
+      s2 = fmaf(v4.z, nv[4 * c4 + 2], s2);
+      s3 = fmaf(v4.w, nv[4 * c4 + 3], s3);
     }
     outp[static_cast<size_t>(n) * P] =
         __float2bfloat16_rn(((s0 + s1) + (s2 + s3)) * scale);
   }
 }
 
+template <int CP>
+int launch_serving_bf16(const void* conf, const void* k, const void* v,
+                        const void* wt, const void* bt, const void* wz,
+                        const void* obj, void* out, void* scratch, int B,
+                        int C, int P, int K, int N, float scale,
+                        cudaStream_t st) {
+  const int Kp = wg::whole_tiles(K);
+  bf16* kp = static_cast<bf16*>(scratch);
+  bf16* vp = kp + static_cast<size_t>(B) * Kp * CP;
+  const int err = wg::launch_prep_kv<CP, true>(k, v, kp, vp, B, K, Kp, C, st);
+  if (err) return err;
+  ct_attention_serving_bf16_kernel<CP>
+      <<<dim3((P + kTile - 1) / kTile, B), wg::kThreads, wg::kWalkSmem<CP>,
+         st>>>(static_cast<const bf16*>(conf), kp, vp,
+               static_cast<const bf16*>(wt), static_cast<const float*>(bt),
+               static_cast<const float*>(wz), static_cast<const bf16*>(obj),
+               static_cast<bf16*>(out), C, P, K, Kp, N, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // bfloat16 entry point: conf, k, v, wt, obj and out bf16, bt and wz float32,
-// C < 64; `scratch` holds 2*B*K*CP bf16 (CP = 16 for C < 16, else 64), the
-// padded k and v. Launches the padding, then the head, on `stream`; returns
-// the launch status.
+// C < 64; `scratch` holds 2*B*Kp*CP bf16 (CP = 16 for C < 16, else 64; Kp =
+// K rounded up to a multiple of 64), k and v in the tile layout. Launches
+// the prep, then the head, on `stream`; returns the first launch error.
 extern "C" int ct_attention_serving_bf16(const void* conf, const void* k,
                                          const void* v, const void* wt,
                                          const void* bt, const void* wz,
@@ -438,30 +475,10 @@ extern "C" int ct_attention_serving_bf16(const void* conf, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int CP = ct::bf::padded_classes(C);
-  bf16* kp = static_cast<bf16*>(scratch);
-  bf16* vp = kp + static_cast<size_t>(B) * K * CP;
-  const long long rows = static_cast<long long>(B) * K;
-  const long long pad_blocks = (rows * CP + 255) / 256;
-  ct::bf::pad_kv<<<static_cast<int>(pad_blocks < 4096 ? pad_blocks : 4096),
-                   256, 0, st>>>(static_cast<const bf16*>(k),
-                                 static_cast<const bf16*>(v), kp, vp, rows, C,
-                                 CP);
-  const cudaError_t pad = cudaGetLastError();
-  if (pad != cudaSuccess) return static_cast<int>(pad);
-  const dim3 grid((P + kRows - 1) / kRows, B);
-  const bf16* cf = static_cast<const bf16*>(conf);
-  const bf16* wf = static_cast<const bf16*>(wt);
-  const float* bf = static_cast<const float*>(bt);
-  const float* zf = static_cast<const float*>(wz);
-  const bf16* of = static_cast<const bf16*>(obj);
-  bf16* outf = static_cast<bf16*>(out);
-  if (CP == 16) {
-    ct_attention_serving_bf16_kernel<16><<<grid, kThreads, 0, st>>>(
-        cf, kp, vp, wf, bf, zf, of, outf, C, P, K, N, scale);
-  } else {
-    ct_attention_serving_bf16_kernel<64><<<grid, kThreads, 0, st>>>(
-        cf, kp, vp, wf, bf, zf, of, outf, C, P, K, N, scale);
+  if (wg::padded_classes(C) == 16) {
+    return launch_serving_bf16<16>(conf, k, v, wt, bt, wz, obj, out, scratch,
+                                   B, C, P, K, N, scale, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_serving_bf16<64>(conf, k, v, wt, bt, wz, obj, out, scratch, B,
+                                 C, P, K, N, scale, st);
 }

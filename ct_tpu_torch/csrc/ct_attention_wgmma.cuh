@@ -1,9 +1,11 @@
 // Hopper building blocks of the bfloat16 attention kernels (the forwards of
-// ct_attention_cm.cu, the backwards of ct_attention_bwd_bf16.cu): warpgroup
-// matrix products (wgmma) on operand tiles in shared memory, bulk
-// asynchronous copies of whole tiles into shared memory that complete on an
-// mbarrier, the elementwise steps between two products, and the prep
-// kernel that lays k and v out as tiles for both.
+// ct_attention_cm.cu, the serving head of ct_attention_serving.cu, the
+// backwards of ct_attention_bwd_bf16.cu): warpgroup matrix products (wgmma)
+// on operand tiles in shared memory, bulk asynchronous copies of whole
+// tiles into shared memory that complete on an mbarrier, the elementwise
+// steps between two products, the forwards' two walks over an image's keys
+// (which the serving head shares), and the prep kernel that lays k and v
+// out as tiles for all of them.
 //
 // The operand tiles. A tile is kTile = 64 rows (anchors or keys) of CP
 // bf16 classes (CP = 16 or 64), a row's classes contiguous: the layout in
@@ -27,16 +29,39 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 
 #include <cstdint>
-
-#include "ct_attention_bf16.cuh"
 
 namespace ct {
 namespace wg {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kTile = 64;      // rows of an operand tile
 constexpr int kThreads = 128;  // one warpgroup
+
+// The class count padded for the tiles: C classes and v's ones column (the
+// forwards' denominator), so C < CP: 15 in CP = 16, up to 63 in CP = 64.
+__host__ __device__ constexpr int padded_classes(int C) {
+  return C < 16 ? 16 : 64;
+}
+
+// lo and hi rounded to bf16 (nearest even) by the conversion unit, packed
+// as a bf16x2 with lo in the low half.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The halves of a bf16x2 as floats (exact).
+__device__ __forceinline__ float unpack_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+
+__device__ __forceinline__ float unpack_hi(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
 
 // Bytes of a [kTile][CP] bf16 tile.
 template <int CP>
@@ -269,8 +294,6 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // --- the elementwise steps between two products ---------------------------
 
-using bf::bf16;
-
 constexpr float kLog2e = 1.4426950408889634f;
 
 // n rounded up to whole tiles.
@@ -301,10 +324,10 @@ __device__ __forceinline__ void to_frags(const float (&x)[32],
                                          uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = bf::pack(x[8 * kk + 0], x[8 * kk + 1]);
-    a[kk][1] = bf::pack(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = bf::pack(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = bf::pack(x[8 * kk + 6], x[8 * kk + 7]);
+    a[kk][0] = pack(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = pack(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
@@ -334,6 +357,163 @@ template <int N>
 __device__ __forceinline__ void add_to(float (&sum)[N], const float (&t)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) sum[i] += t[i];
+}
+
+// --- the forwards' walk over an image's keys ------------------------------
+
+// The key tiles of one image in shared memory, kStages stages of a k tile
+// and a v tile (kTileBytes<CP> each, from `stages`, 1024-byte aligned), and
+// their mbarriers. Load n is walk 1's k tile n for n < tiles, then walk
+// 2's k and v tiles n - tiles: one cp.async.bulk a tile, issued by thread 0
+// into stage n % kStages. kb and vb are the image's keys and values in the
+// tile layout (prep_kv), tiles * kTile of them.
+template <int CP>
+struct KeyTiles {
+  static constexpr int kStages = 2;
+  static constexpr int kBytes = kStages * 2 * kTileBytes<CP>;
+
+  uint8_t* stages;
+  uint64_t* bar;  // kStages
+  const bf16* kb;
+  const bf16* vb;
+  int tiles;
+
+  __device__ __forceinline__ uint8_t* k_tile(int s) const {
+    return stages + s * 2 * kTileBytes<CP>;
+  }
+  __device__ __forceinline__ uint8_t* v_tile(int s) const {
+    return k_tile(s) + kTileBytes<CP>;
+  }
+
+  __device__ __forceinline__ void issue(int n) const {
+    constexpr int TB = kTileBytes<CP>;
+    const int s = n % kStages;
+    const size_t off = static_cast<size_t>(n % tiles) * kTile * CP;
+    const bool values = n >= tiles;
+    bar_expect(&bar[s], values ? 2 * TB : TB);
+    bulk_copy(k_tile(s), kb + off, TB, &bar[s]);
+    if (values) bulk_copy(v_tile(s), vb + off, TB, &bar[s]);
+  }
+
+  // Every thread of the block: thread 0 initialises the barriers and, once
+  // the block has passed them, issues the first kStages loads. Walk 1's
+  // first loads fill no v tile unless the image has one tile of keys, so
+  // stage 0's v tile is free for the caller until walk() begins.
+  __device__ __forceinline__ void start() const {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < kStages; ++i) bar_init(&bar[i], 1);
+      bar_init_fence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int n = 0; n < kStages && n < 2 * tiles; ++n) issue(n);
+    }
+  }
+};
+
+// Bytes of dynamic shared memory of a block that walks the keys: its q
+// tile, the key tiles' stages, and the slack to align them (41 KB at
+// CP=64, under the 48 KB a launch may ask without an attribute).
+template <int CP>
+constexpr int kWalkSmem = kTileBytes<CP> + KeyTiles<CP>::kBytes + 1024;
+
+// The two walks of the bf16 forwards over the keys of ks (after
+// ks.start()) for the 64 rows of the q tile at dq (a [kTile][CP] tile,
+// read K-major), one warpgroup, every thread calling it:
+//  * walk 1, the max: S = Q K^T (m64n64k16, both tiles K-major), the row
+//    max of the live keys over a row's four threads;
+//  * walk 2: S again, e = 2^(s log2 e - m log2 e) (one FMA; kExpBf16 rounds
+//    s - m to bf16 first and then scales it), keys past K masked, e rounded
+//    to bf16 and packed two by two into A fragments by the conversion unit,
+//    O += P V from the staged v tile read MN-major, its numerators and
+//    (column C) denominator in one product; each tile's product in a fresh
+//    accumulator, added with rounded f32 adds (the tensor cores truncate
+//    their accumulator). kSumF32 also sums the unrounded f32 weights.
+// On return, for row h = 16w + g + 8h of the tile: mx[h] the row max (f32),
+// element 4i + 2h + u of o its class 8i + 2t + u, and lsum[h] (kSumF32)
+// this thread's share of the unrounded weights' sum. Ends with a block
+// barrier after the last tile, with no copy in flight: the caller may then
+// reuse the tiles' shared memory.
+template <int CP, bool kExpBf16, bool kSumF32>
+__device__ __forceinline__ void walk(const KeyTiles<CP>& ks, uint64_t dq,
+                                     int K, float (&mx)[2], float (&lsum)[2],
+                                     float (&o)[CP / 2]) {
+  constexpr int kStages = KeyTiles<CP>::kStages;
+  const int tid = threadIdx.x;
+  const int t = tid % 4;
+  const int tiles = ks.tiles;
+  const int loads = 2 * tiles;  // walk 1 the k tiles, walk 2 k and v
+  // mx: the max over the thread's keys until the end of walk 1, the row's
+  // after it
+  float ml[2] = {0.f, 0.f};
+  mx[0] = mx[1] = -INFINITY;
+  lsum[0] = lsum[1] = 0.f;
+  zero(o);
+#pragma unroll 1
+  for (int n = 0; n < loads; ++n) {
+    const int s = n % kStages;
+    bar_wait(&ks.bar[s], (n / kStages) & 1);
+    __syncwarp();
+    const int j0 = (n % tiles) * kTile;
+    const bool ragged = j0 + kTile > K;
+    float sc[32];
+    fence();
+    scores<CP>(sc, dq, desc<CP>(ks.k_tile(s)));
+    commit();
+    wait<0>();
+    keep(sc);
+    if (n < tiles) {
+      // walk 1: the max of the live keys' scores
+      if (ragged) mask_keys(sc, j0, K, t, -INFINITY);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+      if (n == tiles - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          ml[h] = __fmul_rn(mx[h], kLog2e);
+        }
+      }
+    } else {
+      // walk 2: the weights against the final max, O += bf(e) V
+      if (kExpBf16) {  // s - m rounded to bf16 two at a time (one cvt)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {  // elements i, i + 1: one row
+          const int h = (i >> 1) & 1;
+          const uint32_t d2 = pack(sc[i] - mx[h], sc[i + 1] - mx[h]);
+          sc[i] = ex2(__fmul_rn(__uint_as_float(d2 << 16), kLog2e));
+          sc[i + 1] =
+              ex2(__fmul_rn(__uint_as_float(d2 & 0xffff0000u), kLog2e));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sc[i] = ex2(__fmaf_rn(sc[i], kLog2e, -ml[(i >> 1) & 1]));
+        }
+      }
+      if (ragged) mask_keys(sc, j0, K, t);
+      if (kSumF32) {  // the weights before their rounding
+#pragma unroll
+        for (int i = 0; i < 32; ++i) lsum[(i >> 1) & 1] += sc[i];
+      }
+      uint32_t a[4][4];
+      to_frags(sc, a);
+      float ot[CP / 2];
+      fence();
+      rows_product<CP>(ot, a, desc<CP>(ks.v_tile(s)));
+      commit();
+      wait<0>();
+      keep(ot);
+      add_to(o, ot);
+    }
+    // every thread is done with stage s: refill it
+    __syncthreads();
+    if (tid == 0 && n + kStages < loads) ks.issue(n + kStages);
+  }
 }
 
 // --- the prep of k and v ---------------------------------------------------

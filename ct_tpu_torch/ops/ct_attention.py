@@ -55,11 +55,13 @@ the weights e = exp(s − max s) rounded to bf16 before P·V, the denominator
 Σ e of those rounded weights in f32, the output rounded to bf16 (and the
 serving head's q and normalised novel rounded where JAX rounds them). CUDA
 tensors go to the bf16 kernels, counted on ``ct_attention_cm_bf16.launches``
-and its siblings: the forwards on warpgroup ``wgmma`` tiles
-(``csrc/ct_attention_cm.cu``, after the prep of k and v into the tile
-layout that they share with the bf16 backwards, ``prep_kv`` in
-``csrc/ct_attention_wgmma.cuh``), the serving head on the bf16 walk
-(``csrc/ct_attention_bf16.cuh``); CPU tensors to the plain bf16 versions.
+and its siblings, all on warpgroup ``wgmma`` tiles after the prep of k and
+v into the tile layout that they share with the bf16 backwards
+(``prep_kv`` in ``csrc/ct_attention_wgmma.cuh``): the forwards
+(``csrc/ct_attention_cm.cu``) and the serving head
+(``csrc/ct_attention_serving.cu``: θ as one product of the staged conf and
+Wθ tiles, then the forwards' two walks over the keys, ``wg::walk``); CPU
+tensors to the plain bf16 versions.
 ``ct_attention_variant_unfused_bf16`` is the attention bench's one bf16
 body that divides by another sum: its unfused float32-exponent variant,
 whose denominator is Σ e of the float32 weights before their rounding (the
@@ -944,10 +946,10 @@ def ct_attention_serving_bf16(conf_cm, k, v, w_theta, b_theta, wz,
     b, c, p = conf_cm.shape
     kk, n = k.shape[1], obj_target.shape[0]
     out = conf_cm.new_empty((b, n, p))
-    scratch = conf_cm.new_empty((2, b, kk, _padded_classes(c)))
     kernels.launch(ct_attention_serving_bf16, "ct_attention_serving_bf16",
                    (conf_cm, k, v, w_theta, b_theta, wz, obj_target, out,
-                    scratch), (b, c, p, kk, n, scale))
+                    _kv_scratch_bf16(conf_cm, b, c, kk)),
+                   (b, c, p, kk, n, scale))
     return out
 
 

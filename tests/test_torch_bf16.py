@@ -13,6 +13,13 @@ between 2⁻⁸·|x| and 2⁻⁷·|x|).
   output is rounded, so a value at a rounding boundary moves by a step);
   the share of entries that differ at all is recorded (``record_property``)
   and held under 2%.
+* Row 6's bf16 CUDA kernel emulated in torch in its own order (θ, the
+  max over all keys, e by its exp2 form against it, each 64-key tile's
+  numerators and denominator as one product added with rounded f32 adds,
+  then the division, the residual, rsqrt, bf16 novel and the classifier)
+  against JAX's kernel at K = 300 (five tiles, the last ragged), in the
+  same band: the kernel's summation order, which the card tests hold to
+  the plain version, is itself within a step of JAX's.
 * Row 5's forward and row 10 (the attention bench's bf16-exponent
   variant) on the bench's bf16 inputs, against JAX's row-major kernel and
   the bench's ``make_variant``, in the same band; and row 10's unfused
@@ -160,6 +167,54 @@ def test_row6_plain_bf16_matches_jax_kernel(c, n, record_property):
     assert ct_attention_serving_bf16.launches == before
     hold_to_one_step(ours, np.asarray(ref.astype(jnp.float32)),
                      record_property, "row6")
+
+
+# the CUDA kernels' tile of keys (csrc wg::kTile) and their log2(e) in f32
+KEY_TILE = 64
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def serving_kernel_order_bf16(conf, k, v, wt, bt, wz, obj, scale=5.0):
+    """The bf16 serving head in the order of its CUDA kernel
+    (``csrc/ct_attention_serving.cu``): each f32 product of bf16 operands
+    exact in float64 and rounded once to f32 (the tensor cores' sums, up to
+    their truncation), the adds between them rounded in f32."""
+    f64 = torch.float64
+    c = conf.shape[1]
+    x = conf.float()
+    th = torch.einsum("co,bcp->bop", wt.to(f64), conf.to(f64)).float()
+    q = ((th + bt[None, :, None]) + x).to(BF16)
+    s = torch.einsum("bkc,bcp->bkp", k.to(f64), q.to(f64)).float()
+    ml = s.amax(dim=1, keepdim=True) * LOG2E
+    # e = ex2(fma(s, log2 e, -m log2 e)), rounded to bf16
+    e = torch.exp2((s.to(f64) * LOG2E.to(f64) - ml.to(f64)).float()).to(BF16)
+    vv = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1).to(f64)
+    o = torch.zeros((x.shape[0], c + 1, x.shape[2]))
+    for j0 in range(0, k.shape[1], KEY_TILE):   # a fresh product a tile
+        o = o + torch.einsum("bkp,bkc->bcp", e[:, j0:j0 + KEY_TILE].to(f64),
+                             vv[:, j0:j0 + KEY_TILE]).float()
+    n = x + (o[:, :c] / o[:, c:]) * wz[None, :, None]
+    ss = (n.to(f64) ** 2).sum(dim=1, keepdim=True).float()
+    novel = (n * torch.rsqrt(ss)).to(BF16)
+    return (torch.einsum("nc,bcp->bnp", obj.to(f64), novel.to(f64)).float()
+            * scale).to(BF16)
+
+
+@pytest.mark.parametrize("c,n", [(15, 5), (60, 20)])
+def test_row6_kernel_order_bf16_matches_jax_kernel(c, n, record_property):
+    rng = np.random.default_rng(c + n + 1)
+    b, p, kk = 2, 1001, 300      # five 64-key tiles, the last ragged
+    t = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(
+        np.float32)
+    bf = lambda a: torch.from_numpy(a).to(BF16)
+    f32 = torch.from_numpy
+    args = (bf(t(b, c, p, scale=3.0)), bf(t(b, kk, c, scale=0.3)),
+            bf(t(b, kk, c)), bf(t(c, c, scale=0.2)), f32(t(c, scale=0.1)),
+            f32(t(c, scale=0.3)), bf(t(n, c)))
+    ref = j_serving(*map(to_jax, args), interpret=True)
+    ours = serving_kernel_order_bf16(*args)
+    hold_to_one_step(ours, np.asarray(ref.astype(jnp.float32)),
+                     record_property, f"row6_kernel_order_c{c}")
 
 
 def test_rowmajor_and_bench_variant_plain_bf16_match_jax(record_property):

@@ -238,28 +238,31 @@ def test_bwd_bf16_bench_runs_on_the_cpu(capsys, tmp_path):
 
 
 def test_fwd_bf16_bench_runs_on_the_cpu(capsys, tmp_path):
-    """The bf16 forwards' bench (rows 1 and 2 at both widths, 5's forward,
-    10 and 10's unfused body at the widest) at a tiny size: one record a
-    row and width, printed and in its JSON file; on the CPU each wrapper is
-    its plain version (no error) and no library time or kernel split is
-    taken."""
+    """The bf16 forwards' bench (rows 1, 2 and 6 at both widths, 6 again at
+    the bench's batch, 5's forward, 10 and 10's unfused body at the
+    widest) at a tiny size: one record a row and width, printed and in its
+    JSON file; on the CPU each wrapper is its plain version (no error) and
+    no library time or kernel split is taken. Row 6 at a bench batch of 9
+    holds its first 8 images to the plain version."""
     import json
 
     from ct_tpu_torch.scripts import bench_fwd_bf16
 
     out = tmp_path / "fwd.json"
     res = bench_fwd_bf16.main(["--device", "cpu", "--iters", "1",
-                               "--batches", "1", "2", "1", "--anchors", "130",
+                               "--batches", "1", "2", "9", "--anchors", "130",
                                "--keys", "65", "--widths", "15", "60",
                                "--json", str(out)])
     assert [(r["row"], r["C"], r["B"]) for r in res["rows"]] == [
-        ("1", 15, 1), ("2", 15, 2), ("1", 60, 1), ("2", 60, 2),
-        ("5 fwd", 60, 1), ("10", 60, 1), ("10 unfused", 60, 1)]
+        ("1", 15, 1), ("2", 15, 2), ("6", 15, 1), ("1", 60, 1), ("2", 60, 2),
+        ("6", 60, 1), ("6", 60, 9), ("5 fwd", 60, 9), ("10", 60, 9),
+        ("10 unfused", 60, 9)]
     assert all(v == 0 for r in res["rows"] for e in r["errors"].values()
                for v in e.values())
-    assert [sorted(r["errors"]) for r in res["rows"][:2]] == [
-        ["out"], ["delta", "m", "out", "z"]]
+    assert [sorted(r["errors"]) for r in res["rows"][:3]] == [
+        ["out"], ["delta", "m", "out", "z"], ["out"]]
+    assert [r.get("held_images") for r in res["rows"]][5:7] == [None, 8]
     assert all("library_ms" not in r and "kernels_ms" not in r
                for r in res["rows"])
-    assert capsys.readouterr().out.count('"row"') == 7
+    assert capsys.readouterr().out.count('"row"') == 10
     assert json.loads(out.read_text())["rows"] == res["rows"]

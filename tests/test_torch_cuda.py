@@ -49,14 +49,16 @@ plain version on the same card, f32 with TF32 off:
 The bfloat16 forwards (``ct_attention_cm_bf16``, ``ct_attention_bf16``,
 ``ct_attention_variant_bf16``, ``ct_attention_variant_unfused_bf16`` on
 the ``wgmma`` tiles of ``csrc/ct_attention_cm.cu``;
-``ct_attention_serving_bf16`` on the bf16 walk of
-``csrc/ct_attention_bf16.cuh``): within one bf16 step of the largest
+``ct_attention_serving_bf16`` on the same tiles and walks, in
+``csrc/ct_attention_serving.cu``): within one bf16 step of the largest
 output of their plain bf16 versions (``bf16_step``: the two sum in another
 f32 order and the output is rounded to bf16, so a value at a rounding
 boundary moves by a step), at the eval shapes and at the edges of the
 tiles (P = 1, 63, 64, 65, 127, 128, 129, 1001; K = 1, 31, 32, 33, 63, 64,
 65, 97, 127, 128, 129 and the 512 size's 4,964; C = 1, 7, 15, 16, 17, 60,
-63), the same bits twice, one launch counted a call; the prep of k and v
+63; the serving head also at N = 1, 20 and 64), the same bits twice, one
+launch counted a call; the serving head on 9 images, sliced to the first
+3, bit for bit the head on those 3 alone; the prep of k and v
 that they share with the bf16 backwards bit for bit against a torch
 rearrangement into the tile layout, with and without v's ones column; and
 they refuse C = 64 and mixed types; a call that needs a gradient runs the
@@ -826,7 +828,15 @@ def test_bf16_prep_writes_the_tile_layout(cuda, b, c, k, ones):
 
 BF16_SERVING_SHAPES = [(8, 15, 11620, 1858, 5), (8, 60, 11620, 1858, 20),
                        (1, 7, 63, 1, 1), (2, 15, 64, 31, 64),
-                       (1, 17, 65, 33, 3), (2, 63, 1001, 97, 64)]
+                       (1, 17, 65, 33, 3), (2, 63, 1001, 97, 64),
+                       # one below, at and one past the 64-row tiles of
+                       # anchors and of keys, and two tiles and one more;
+                       # C at both tile widths' edges; N = 1, 20 and 64
+                       (1, 1, 63, 64, 1), (2, 15, 64, 65, 20),
+                       (1, 16, 65, 129, 64), (2, 63, 129, 63, 20),
+                       (1, 63, 64, 129, 1), (1, 1, 129, 65, 64),
+                       # the 512 size's keys: 78 tiles of rounded adds
+                       (1, 60, 4096, 4964, 20)]
 
 
 @pytest.mark.parametrize("b,c,p,k,n", BF16_SERVING_SHAPES)
@@ -847,6 +857,23 @@ def test_bf16_serving_matches_plain_version(cuda, b, c, p, k, n):
     assert err <= bf16_step(ref.float().abs().max().item()), err
     # the public wrapper takes bf16 conf to the same kernel
     assert torch.equal(ct_attention_serving(*args), first)
+
+
+@pytest.mark.parametrize("c,n", [(15, 5), (60, 20)])
+def test_bf16_serving_is_batch_independent(cuda, c, n):
+    """A block of the bf16 serving head owns 64 anchors of one image: its
+    scores on 9 images, sliced to the first 3, equal bit for bit its
+    scores on those 3 alone (what chip_smoke.py's batch-128 case leans
+    on)."""
+    bf = lambda t: t.to(torch.bfloat16)
+    conf, kk, v, wt, bt, wz, obj = serving_inputs(c + n, 9, c, 1001, 130, n,
+                                                  cuda)
+    args = (bf(conf), bf(kk), bf(v), bf(wt), bt, wz, bf(obj))
+    whole = ct_attention_serving_bf16(*args)
+    alone = ct_attention_serving_bf16(
+        *(a[:3] if a.dim() == 3 else a for a in args))
+    torch.cuda.synchronize()
+    assert torch.equal(whole[:3], alone)
 
 
 def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda):
