@@ -177,7 +177,31 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            (as the JAX bench's) and in float32, few
            iterations each, with the launches of their kernels; their
            lines go to build/chip_smoke/bench_*.txt.
-10. kernels one line listing every kernel of the port with its launches
+10. coco   COCO data and the host native layer: the COCO-60 fixture
+           (1,800 train and 128 minival images, seed 0) built with
+           ``tools/coco_fixture.py`` into a fresh build/chip_smoke/coco;
+           the port's COCO evaluator on the JAX package's tracked
+           detections of that minival (.parity_tr/ours_eval_coco), every
+           number of its record within 1e-12; then phase-1 COCO-60
+           pretraining through the train CLI (``-d COCO -p 1 --setting
+           transfer``, batch 64, from the seeded init): 20 iterations in
+           f32 with the host augmentation in 6 worker processes
+           (``--worker-type process``), and 8 in bf16 with
+           ``--device-augment``, each with conv1's pool kernels launched
+           once an iteration (and no other training kernel), finite losses,
+           a metrics row, images/s and the loader's wait; then the eval CLI
+           with ``-d COCO`` on the f32 model over the minival (the NMS
+           kernel launched, AP and AP50 in [0, 1] or -1: a smoke of the
+           path, the model is not trained); then ``ref_model.pth`` on the
+           500 VOC images with the card's NMS and with ``--host-nms``
+           (the native C++ NMS on the host, the NMS kernel not launched):
+           mAP and novel mAP within 0.003 of the JAX package's record
+           (0.74351 / 0.61613, beside the reference stack's 0.74418 /
+           0.61773), its detections against the card's by the JAX
+           package's band (match rate > 0.95 at IoU 0.75, p99 box error 0
+           px). The CLIs' output goes to build/chip_smoke/coco_*.txt and
+           voc500_*_nms.txt.
+11. kernels one line listing every kernel of the port with its launches
            on its path's phase, error and times.
 
 Any failure raises and exits non-zero with no "ok" line. The last line is
@@ -359,6 +383,29 @@ TRAIN_CLI_MAP_FLOOR = 0.5
 # the bf16 train CLI run: its first write point comes after 5 iterations,
 # then at the last
 TRAIN_CLI_BF16_ITERS = 8
+# the coco phase: the COCO-60 fixture at the size of the JAX package's
+# tracked record (1,800 train and 128 minival images, seed 0), built into
+# a fresh directory; that record's detections and scores, which the port's
+# evaluator must reproduce to COCO_EVAL_TOL; phase-1 COCO-60 training for
+# COCO_TRAIN_ITERS iterations (f32, host augmentation in COCO_WORKERS
+# processes) and COCO_BF16_ITERS (bf16, device augmentation), each with one
+# metrics row at its last iteration
+COCO_DIR = os.path.join("build", "chip_smoke", "coco")
+COCO_FIXTURE = (1800, 128, 0)
+COCO_RECORD = os.path.join(".parity_tr", "ours_eval_coco")
+COCO_EVAL_TOL = 1e-12
+COCO_TRAIN_ITERS = 20
+COCO_BF16_ITERS = 8
+COCO_WORKERS = 6
+# --host-nms on the 500 VOC images: the JAX package's f32 record
+# (.parity_p2/ours_eval.json) within MAP_TOL, the reference stack's
+# (docs/PARITY.md) as a reading, and against the card's NMS the JAX
+# package's own band (tests/test_cli_e2e.py): the card path ranks the top
+# candidates of each class before NMS, the host every score above 0.01
+HOST_NMS_REF = (0.74351, 0.61613)
+HOST_NMS_REFERENCE_STACK = (0.74418, 0.61773)
+HOST_NMS_IOU = 0.75
+HOST_NMS_MATCH = 0.95
 
 
 def emit(obj) -> None:
@@ -2833,6 +2880,160 @@ def train_cli_bf16(out_dir: str) -> dict:
     return res
 
 
+def coco_train_cli(save: str, flags, iters: int, used) -> dict:
+    """``python -m ct_tpu_torch.train -d COCO -p 1 --setting transfer`` for
+    ``iters`` iterations at batch 64 from the seeded init (no basenet), in
+    the first iterations of the CLI's warm-up, with ``flags``: finite losses, one ``metrics.json`` row at the last
+    iteration, each kernel of ``used`` (conv1's pool) launched once an
+    iteration and the other training kernels never, the iteration time
+    and loader wait of that row."""
+    import json
+    import shutil
+
+    from ct_tpu_torch.train import cli as train_cli
+
+    if os.path.exists(save):
+        shutil.rmtree(save)
+    os.makedirs(save)
+    counts = training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with Captured(save + ".txt"):
+        last = train_cli.main([
+            "-d", "COCO", "-p", "1", "--setting", "transfer",
+            "-b", str(TRAIN_BATCH), "--max-iter", str(iters),
+            "--save-folder", save] + flags)
+    res = {"flags": flags, "train_s": time.perf_counter() - t0,
+           "last": last,
+           "launches": {n: fn.launches for n, fn in counts.items()}}
+    with open(os.path.join(save, "metrics.json")) as f:
+        res["metrics_rows"] = [json.loads(line) for line in f]
+    expected = {n: iters if n in used else 0 for n in counts}
+    if not (res["launches"] == expected
+            and [r["iteration"] for r in res["metrics_rows"]] == [iters]
+            and all(math.isfinite(v) for r in res["metrics_rows"] + [last]
+                    for v in r.values())):
+        raise AssertionError(f"the COCO train CLI run is wrong: {res}")
+    row = res["metrics_rows"][-1]
+    res.update(iteration_s_median=row["time"],
+               loader_wait_s_median=row["data_time"],
+               images_per_s=TRAIN_BATCH / row["time"])
+    return res
+
+
+def phase_coco(out_dir: str) -> dict:
+    """COCO data and the host native layer on the card: the COCO-60 fixture
+    built afresh, the evaluator against the JAX package's record,
+    phase-1 COCO-60 training through the train CLI (f32 with the host
+    augmentation in worker processes, then bf16 with the device
+    augmentation), the COCO eval of the f32 model, and ``--host-nms``
+    against the card's NMS on the 500 VOC fixture images."""
+    import json
+    import pickle
+    import shutil
+
+    from ct_tpu_torch import test as eval_cli
+    from ct_tpu_torch.data.coco import COCODetection
+    from ct_tpu_torch.ops.ct_attention import ct_attention_cm
+    from ct_tpu_torch.ops.nms import nms_mask
+    from ct_tpu_torch.tools.coco_fixture import make_coco60
+    from ct_tpu_torch.tools.diff_detections import diff
+
+    # a fresh tree: the roidb cache is keyed by the split's name only
+    if os.path.exists(COCO_DIR):
+        shutil.rmtree(COCO_DIR)
+    t0 = time.perf_counter()
+    make_coco60(COCO_DIR, *COCO_FIXTURE)
+    res = {"fixture_s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    with open(os.path.join(COCO_RECORD, "inference", "detections.pkl"),
+              "rb") as f:
+        all_boxes = pickle.load(f)
+    with open(COCO_RECORD + ".json") as f:
+        record = json.load(f)
+    scored = COCODetection(COCO_DIR, [("2014", "split_nonvoc_minival")]
+                           ).evaluate_detections(
+        all_boxes, os.path.join(out_dir, "coco_record"))
+    deltas = {k: 0.0 if math.isnan(v) and math.isnan(scored[k])
+              else abs(scored[k] - v) for k, v in record.items()}
+    res["evaluator"] = {"seconds": time.perf_counter() - t0,
+                        "AP": scored["AP"], "AP50": scored["AP50"],
+                        "keys": len(record), "max_abs_delta":
+                        max(deltas.values())}
+    if set(scored) != set(record) or max(deltas.values()) > COCO_EVAL_TOL:
+        raise AssertionError(f"the COCO evaluator misses the JAX record: "
+                             f"{deltas}")
+
+    os.environ["COCO_ROOT"] = COCO_DIR
+    save = os.path.join(out_dir, "coco_train")
+    res["train"] = coco_train_cli(
+        save, ["--worker-type", "process", "--num-workers",
+               str(COCO_WORKERS)], COCO_TRAIN_ITERS,
+        ("pool2x2_relu_fwd", "pool2x2_relu_bwd"))
+    res["train_bf16"] = coco_train_cli(
+        os.path.join(out_dir, "coco_train_bf16"),
+        ["--bf16", "--device-augment"], COCO_BF16_ITERS,
+        ("pool2x2_relu_fwd_bf16", "pool2x2_relu_bwd_bf16"))
+
+    nms_mask.launches = 0
+    t0 = time.perf_counter()
+    with Captured(os.path.join(out_dir, "coco_eval.txt")):
+        scores = eval_cli.main([
+            "-d", "COCO", "-p", "1", "--setting", "transfer",
+            "--load-file", os.path.join(save, "model_final.pth"),
+            "--save-folder", save])
+    res["eval"] = {"seconds": time.perf_counter() - t0,
+                   "nms_mask_launches": nms_mask.launches,
+                   **{k: v for k, v in scores.items()
+                      if not k.startswith("AP-")}}
+    if not (nms_mask.launches > 0 and all(
+            0 <= scores[k] <= 1 or scores[k] == -1 for k in ("AP", "AP50"))):
+        raise AssertionError(f"the COCO eval is wrong: {res['eval']}")
+
+    # --host-nms against the card's NMS: ref_model.pth, 500 VOC images
+    os.environ["VOC_ROOT"] = VOC_ROOT
+    kernels = {"ct_attention_cm": ct_attention_cm, "nms_mask": nms_mask}
+    for name, flags in (("voc500_card_nms", []),
+                        ("voc500_host_nms", ["--host-nms"])):
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with Captured(os.path.join(out_dir, name + ".txt")):
+            scores = eval_cli.main([
+                "-p", "2", "--setting", "incre", "--split", "1",
+                "--load-file", REF_MODEL,
+                "--save-folder", os.path.join(out_dir, name)] + flags)
+        res[name] = {"seconds": time.perf_counter() - t0,
+                     "mAP": scores["mAP"], "novel_mAP": scores["novel_mAP"],
+                     "launches": {n: fn.launches
+                                  for n, fn in kernels.items()}}
+    host = res["voc500_host_nms"]
+    ref_map, ref_novel = HOST_NMS_REF
+    host.update(
+        tol=MAP_TOL, jax_mAP=ref_map, jax_novel_mAP=ref_novel,
+        reference_stack_mAP=HOST_NMS_REFERENCE_STACK[0],
+        reference_stack_novel_mAP=HOST_NMS_REFERENCE_STACK[1],
+        delta_mAP=host["mAP"] - ref_map,
+        delta_novel_mAP=host["novel_mAP"] - ref_novel,
+        vs_card_nms=diff(
+            os.path.join(out_dir, "voc500_card_nms", "inference",
+                         "detections.pkl"),
+            os.path.join(out_dir, "voc500_host_nms", "inference",
+                         "detections.pkl"), iou_thr=HOST_NMS_IOU))
+    band = host["vs_card_nms"]
+    if not (abs(host["delta_mAP"]) <= MAP_TOL
+            and abs(host["delta_novel_mAP"]) <= MAP_TOL
+            and band["match_rate"] > HOST_NMS_MATCH
+            and band["p99_box_err_px"] == 0.0
+            and host["launches"]["ct_attention_cm"] > 0
+            and host["launches"]["nms_mask"] == 0
+            and res["voc500_card_nms"]["launches"]["nms_mask"] > 0):
+        raise AssertionError(f"the --host-nms eval is wrong: {res}")
+    return res
+
+
 def phase_bench(out_dir: str) -> dict:
     """The port's three kernel benches at 300 (and the backward bench at
     512), few iterations each, their printed lines to ``out_dir``; the
@@ -3236,6 +3437,7 @@ def main(argv=None) -> int:
                                                              PROFILE_DIR)),
                      ("train_cli", lambda: phase_train_cli(args.seed,
                                                            PROFILE_DIR)),
+                     ("coco", lambda: phase_coco(PROFILE_DIR)),
                      ("bench", lambda: phase_bench(PROFILE_DIR))):
         t0 = time.perf_counter()
         results[name] = fn()

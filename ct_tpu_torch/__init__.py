@@ -8,12 +8,14 @@ the card unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda") -> "torch.device":
     """The device an entry point runs on: the card unless the caller asks
     for the CPU. A CUDA request on a host without a card raises."""
+    # torch is imported where it is used: the loader's worker processes
+    # import the package for their dataset and need no torch
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

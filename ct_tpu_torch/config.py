@@ -66,6 +66,26 @@ VOC_512 = SSDConfig(
     aspect_ratios=((2, 3), (2, 3), (2, 3), (2, 3), (2, 3), (2,), (2,)),
 )
 
+COCO_300 = SSDConfig(
+    name="COCO_300",
+    min_dim=300,
+    feature_maps=(38, 19, 10, 5, 3, 1),
+    steps=(8, 16, 32, 64, 100, 300),
+    min_sizes=(21, 45, 99, 153, 207, 261),
+    max_sizes=(45, 99, 153, 207, 261, 315),
+    aspect_ratios=((2, 3), (2, 3), (2, 3), (2, 3), (2,), (2,)),
+)
+
+COCO_512 = SSDConfig(
+    name="COCO_512",
+    min_dim=512,
+    feature_maps=(64, 32, 16, 8, 4, 2, 1),
+    steps=(8, 16, 32, 64, 128, 256, 512),
+    min_sizes=(20.48, 51.2, 133.12, 215.04, 296.96, 378.88, 460.8),
+    max_sizes=(51.2, 133.12, 215.04, 296.96, 378.88, 460.8, 542.72),
+    aspect_ratios=((2, 3), (2, 3), (2, 3), (2, 3), (2, 3), (2,), (2,)),
+)
+
 # Reduced-geometry config of the size-64 test model (sources: Norm at
 # 16x16, RFB at 8x8); never a parity target on its own.
 TINY_64 = SSDConfig(
@@ -81,6 +101,8 @@ TINY_64 = SSDConfig(
 CONFIGS = {
     ("VOC", 300): VOC_300,
     ("VOC", 512): VOC_512,
+    ("COCO", 300): COCO_300,
+    ("COCO", 512): COCO_512,
 }
 
 

@@ -1,14 +1,15 @@
 """Batched inference: forward → softmax → decode → NMS → per-image cap.
 
 The port of ``make_eval_step`` (``ct_tpu/train/step.py``) and of
-``run_inference`` (``test.py``), on one device.
+``run_inference`` and ``run_inference_host_nms`` (``test.py``), on one
+device; the latter runs NMS on the host.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,7 +17,7 @@ import torch
 from ct_tpu_torch.config import RGB_MEANS, TaskSpec
 from ct_tpu_torch.data.voc import eval_transform
 from ct_tpu_torch.models.rfbnet import RFBNet, eval_scores
-from ct_tpu_torch.ops.detection import postprocess
+from ct_tpu_torch.ops.detection import decode_and_fuse, postprocess
 from ct_tpu_torch.ops.nms import Detections
 
 logger = logging.getLogger(__name__)
@@ -49,34 +50,64 @@ def make_eval_step(
     return step
 
 
+def make_decode_step(
+    net: RFBNet, priors_cs: torch.Tensor, score_threshold: float = 0.01,
+) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]]:
+    """The eval step stopped before NMS, for the host's NMS: images [B,3,
+    S,S] → (boxes [B,P,4] percent coordinates, scores [B,P,C+1], above
+    [B,P,C+1]), boxes and scores float32 and ``above`` the candidates
+    (score > ``score_threshold``). The threshold compares in the scores'
+    own type (bf16 on a bf16 model), as numpy compares the JAX package's
+    bf16 scores."""
+
+    @torch.inference_mode()
+    def step(images: torch.Tensor):
+        preds = net(images)
+        conf, obj = eval_scores(preds)
+        boxes, scores = decode_and_fuse(preds.loc, conf, obj, priors_cs)
+        return boxes.float(), scores.float(), scores > score_threshold
+
+    return step
+
+
+def _batches(dataset, img_dim: int, batch_size: int):
+    """(lo, hi, images [batch_size,S,S,3] float32, sizes [(h, w)] of the
+    real images) over ``dataset``; the final batch is padded to
+    ``batch_size`` by repeating its last image, so every step has the same
+    shape."""
+    for lo in range(0, len(dataset), batch_size):
+        hi = min(lo + batch_size, len(dataset))
+        images, sizes = [], []
+        for i in range(lo, hi):
+            img = dataset.pull_image(i)
+            sizes.append((img.shape[0], img.shape[1]))
+            images.append(eval_transform(img, img_dim, RGB_MEANS))
+        images.extend([images[-1]] * (batch_size - (hi - lo)))
+        yield lo, hi, np.stack(images), sizes
+
+
+def _nchw(images: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(images).permute(0, 3, 1, 2).to(
+        device).contiguous()
+
+
 def run_inference(net: RFBNet, dataset, task: TaskSpec,
                   priors_cs: torch.Tensor, img_dim: int,
                   batch_size: int = 32, **step_options) -> List[list]:
     """Batched inference over ``dataset`` → the reference's ``all_boxes``:
     all_boxes[class][image] = float32 [n, 5] (x1, y1, x2, y2, score) in
-    pixels. The final batch is padded to ``batch_size`` by repeating its
-    last image, so every step has the same shape. ``step_options`` go to
-    ``make_eval_step``."""
+    pixels. ``step_options`` go to ``make_eval_step``."""
     device = priors_cs.device
     eval_step = make_eval_step(net, priors_cs, **step_options)
     num_images = len(dataset)
     num_classes = task.num_classes
     all_boxes = [[[] for _ in range(num_images)] for _ in range(num_classes)]
 
-    for lo in range(0, num_images, batch_size):
-        hi = min(lo + batch_size, num_images)
-        images, sizes = [], []
-        for i in range(lo, hi):
-            img = dataset.pull_image(i)
-            sizes.append([img.shape[0], img.shape[1]])
-            images.append(eval_transform(img, img_dim, RGB_MEANS))
-        pad = batch_size - (hi - lo)
-        images.extend([images[-1]] * pad)
-        sizes.extend([sizes[-1]] * pad)
-
+    for lo, hi, images, sizes in _batches(dataset, img_dim, batch_size):
         t0 = time.perf_counter()
-        x = torch.from_numpy(np.stack(images)).permute(0, 3, 1, 2)
-        dets = eval_step(x.to(device).contiguous(),
+        sizes += [sizes[-1]] * (batch_size - (hi - lo))
+        dets = eval_step(_nchw(images, device),
                          torch.tensor(sizes, device=device))
         dets = Detections(*(t.cpu().numpy() for t in dets))
         detect_time = time.perf_counter() - t0
@@ -93,6 +124,50 @@ def run_inference(net: RFBNet, dataset, task: TaskSpec,
         if (lo // batch_size) % 5 == 0:
             logger.info("im_detect: %d/%d batch=%d %.3fs", hi, num_images,
                         hi - lo, detect_time)
+    return all_boxes
+
+
+def run_inference_host_nms(net: RFBNet, dataset, task: TaskSpec,
+                           priors_cs: torch.Tensor, img_dim: int,
+                           batch_size: int = 32, max_per_image: int = 200,
+                           thresh: float = 0.01) -> List[list]:
+    """``run_inference`` with the reference's CPU-NMS eval: decode and
+    obj×conf fusion on the device (``make_decode_step``), then on the host
+    per class the native greedy NMS at IoU 0.45 over every score above
+    ``thresh``, and the per-image cap (scores ≥ the ``max_per_image``-th).
+    The port of ``run_inference_host_nms`` (``test.py``)."""
+    from ct_tpu_torch import native
+
+    device = priors_cs.device
+    decode_step = make_decode_step(net, priors_cs, thresh)
+    num_images = len(dataset)
+    num_classes = task.num_classes
+    all_boxes = [[[] for _ in range(num_images)] for _ in range(num_classes)]
+
+    for lo, hi, images, sizes in _batches(dataset, img_dim, batch_size):
+        boxes, scores, above = (t.cpu().numpy() for t in
+                                decode_step(_nchw(images, device)))
+        for bi, i in enumerate(range(lo, hi)):
+            h, w = sizes[bi]
+            bx = boxes[bi] * np.asarray([w, h, w, h], np.float32)
+            sc = scores[bi]
+            for j in range(1, num_classes):
+                inds = np.where(above[bi, :, j])[0]
+                if len(inds) == 0:
+                    all_boxes[j][i] = np.empty((0, 5), np.float32)
+                    continue
+                c_dets = np.hstack([bx[inds], sc[inds, j, None]])
+                keep = native.cpu_nms(c_dets, 0.45)
+                all_boxes[j][i] = c_dets[keep]
+            image_scores = np.hstack(
+                [all_boxes[j][i][:, -1] for j in range(1, num_classes)])
+            if len(image_scores) > max_per_image:
+                image_thresh = np.sort(image_scores)[-max_per_image]
+                for j in range(1, num_classes):
+                    keep = all_boxes[j][i][:, -1] >= image_thresh
+                    all_boxes[j][i] = all_boxes[j][i][keep]
+        if (lo // batch_size) % 5 == 0:
+            logger.info("im_detect (host NMS): %d/%d", hi, num_images)
     return all_boxes
 
 

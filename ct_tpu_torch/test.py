@@ -4,7 +4,9 @@
         --load-file .parity_p2/ref_model.pth --save-folder out/ \\
         [--device cuda|cpu] [--retest] [--resume] [--top-k 200] \\
         [--int8 [--int8-heads] [--calib-images 8]] [--bf16] \\
-        [--approx-topk on] [--pool-size 512]
+        [--approx-topk on] [--pool-size 512] [--host-nms]
+    python -m ct_tpu_torch.test -d COCO -p 1 --setting transfer \\
+        --load-file weights/model_final.pth --save-folder out/
 
 ``--int8`` runs the serving path: BN folded into the convs, activation
 ranges calibrated on ``--calib-images`` train-split images (never the test
@@ -13,12 +15,19 @@ serving CT head. ``--bf16`` computes in bfloat16 as the JAX package's
 ``--bf16`` does (float32 parameters, bf16 convs, BN and CT head, the bf16
 CT kernels), with or without ``--int8``; the JAX bench's full serving
 config is ``--int8 --int8-heads --bf16 --approx-topk on --top-k 128
---pool-size 512``. The VOC root comes from ``VOC_ROOT`` (default
-``data/VOCdevkit``). Writes ``<save-folder>/inference/detections.pkl``,
-the VOC mAP as ``eval.json`` and the inference rate through the dataset
-layer as ``speed.json``; ``--retest`` re-scores the cached detections.
-Flags of what the port does not run yet raise and name the ROADMAP item
-that will port it.
+--pool-size 512``. ``--host-nms`` decodes and fuses the scores on the
+device and runs the per-class NMS on the host, in the port's native C++
+library (the reference's CPU-NMS eval).
+
+``-d VOC`` scores the 2007 test set under ``VOC_ROOT`` (default
+``data/VOCdevkit``) by VOC mAP; ``-d COCO`` scores
+``split_nonvoc_minival2014`` under ``COCO_ROOT`` (default ``data/COCO``)
+by the 12 COCO numbers and the AP of each class, and calibrates int8 on
+``split_nonvoc_train2014``. Writes
+``<save-folder>/inference/detections.pkl``, the scores as ``eval.json``
+and the inference rate through the dataset layer as ``speed.json``;
+``--retest`` re-scores the cached detections. Flags of what the port does
+not run yet raise and name the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -37,11 +46,8 @@ logger = logging.getLogger("ct_tpu_torch.test")
 
 # flag → (is it set?, the ROADMAP item that will port it)
 UNPORTED = (
-    ("--host-nms", lambda a: a.host_nms,
-     "Queue 1 item 3 (host NMS, the port's copy of ct_tpu/native/nms.cpp)"),
     ("--ndev > 1", lambda a: a.ndev > 1,
      "Queue 1 item 8 (data-parallel eval)"),
-    ("-d COCO", lambda a: a.dataset != "VOC", "Queue 1 item 5 (COCO data)"),
     ("--pallas-ct", lambda a: a.pallas_ct is not None,
      "none: the port always runs its CT kernels on the card"),
 )
@@ -55,7 +61,7 @@ def parse_args(argv=None):
     parser.add_argument("--load-file", "--load_file", dest="load_file",
                         default=None, help="Model checkpoint (.pth).")
     parser.add_argument("-d", "--dataset", default="VOC",
-                        help="VOC (COCO is not ported).")
+                        help="VOC or COCO dataset.")
     parser.add_argument("--split", type=int, default=1,
                         help="VOC base/novel split, for VOC only.")
     parser.add_argument("--setting", default="transfer",
@@ -90,12 +96,14 @@ def parse_args(argv=None):
                         help="With --int8: the loc/conf/obj heads int8 too")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (float32 parameters)")
+    parser.add_argument("--host-nms", action="store_true",
+                        help="Run NMS on the host in the native C++ library "
+                             "(the reference's CPU-NMS eval)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu.")
     # flags of test.py that the port does not run: each raises
     parser.add_argument("--pallas-ct", choices=["auto", "on", "off"],
                         default=None)
-    parser.add_argument("--host-nms", action="store_true")
     parser.add_argument("--ndev", type=int, default=1)
     return parser.parse_args(argv)
 
@@ -107,26 +115,31 @@ def calibration_images(args, img_dim: int, n: int) -> np.ndarray:
     the train split is not on disk, seeded mean-centred noise takes its
     place, as in the JAX package."""
     from ct_tpu_torch.config import RGB_MEANS
+    from ct_tpu_torch.data.coco import COCODetection
     from ct_tpu_torch.data.voc import (
         AnnotationTransform, VOCDetection, eval_transform, read_image,
     )
 
     try:
-        if args.phase == 2 and args.setting == "incre":
-            sets = [("2007", "trainval")]
+        if args.dataset == "COCO":
+            ds = COCODetection(os.environ.get("COCO_ROOT", "data/COCO"),
+                               [("2014", "split_nonvoc_train")])
+            paths = ds.ids
         else:
-            sets = [("2007", "trainval"), ("2012", "trainval")]
-        ds = VOCDetection(
-            os.environ.get("VOC_ROOT", "data/VOCdevkit"), sets, None,
-            AnnotationTransform(0 if args.setting == "transfer"
-                                else args.split),
-            phase=1, setting=args.setting, split=args.split)
-        n = min(n, len(ds))
-        imgs = []
-        for rootpath, img_id in ds.ids[:n]:
-            img = read_image(os.path.join(rootpath, "JPEGImages",
-                                          img_id + ".jpg"))
-            imgs.append(eval_transform(img, img_dim, RGB_MEANS))
+            if args.phase == 2 and args.setting == "incre":
+                sets = [("2007", "trainval")]
+            else:
+                sets = [("2007", "trainval"), ("2012", "trainval")]
+            ds = VOCDetection(
+                os.environ.get("VOC_ROOT", "data/VOCdevkit"), sets, None,
+                AnnotationTransform(0 if args.setting == "transfer"
+                                    else args.split),
+                phase=1, setting=args.setting, split=args.split)
+            paths = [os.path.join(rootpath, "JPEGImages", img_id + ".jpg")
+                     for rootpath, img_id in ds.ids]
+        n = min(n, len(paths))
+        imgs = [eval_transform(read_image(path), img_dim, RGB_MEANS)
+                for path in paths[:n]]
         logger.info("int8 calibration: %d train-split images", n)
         return np.stack(imgs).transpose(0, 3, 1, 2).copy()
     except Exception as e:  # the train split is missing
@@ -159,6 +172,22 @@ def serving_model(net, images, int8_heads: bool = False):
     return folded, quant
 
 
+def eval_set(args):
+    """The test set of ``args.dataset``: VOC 2007 test, or COCO's
+    ``split_nonvoc_minival2014``."""
+    from ct_tpu_torch.data.coco import COCODetection
+    from ct_tpu_torch.data.voc import VOCTestSet
+
+    if args.dataset == "VOC":
+        return VOCTestSet(os.environ.get("VOC_ROOT", "data/VOCdevkit"),
+                          "2007", "test", phase=args.phase,
+                          setting=args.setting, split=args.split)
+    if args.dataset == "COCO":
+        return COCODetection(os.environ.get("COCO_ROOT", "data/COCO"),
+                             [("2014", "split_nonvoc_minival")])
+    raise ValueError(f"Unknown dataset: {args.dataset}")
+
+
 def main(argv=None) -> dict:
     from ct_tpu_torch.train.cli import check_ported
 
@@ -169,8 +198,7 @@ def main(argv=None) -> dict:
 
     from ct_tpu_torch import resolve_device
     from ct_tpu_torch.config import get_config, resolve_task
-    from ct_tpu_torch.data.voc import VOCTestSet
-    from ct_tpu_torch.eval import run_inference
+    from ct_tpu_torch.eval import run_inference, run_inference_host_nms
     from ct_tpu_torch.models.convert import load_reference_pth
     from ct_tpu_torch.models.rfbnet import build_net
     from ct_tpu_torch.ops.priors import prior_boxes
@@ -191,9 +219,7 @@ def main(argv=None) -> dict:
     os.makedirs(save_folder, exist_ok=True)
     img_dim = 512 if args.size == "512" else 300
     task = resolve_task(args.phase, args.setting, args.method, args.dataset)
-    dataset = VOCTestSet(os.environ.get("VOC_ROOT", "data/VOCdevkit"),
-                         "2007", "test", phase=args.phase,
-                         setting=args.setting, split=args.split)
+    dataset = eval_set(args)
 
     det_file = os.path.join(save_folder, "detections.pkl")
     if args.retest:
@@ -220,16 +246,21 @@ def main(argv=None) -> dict:
                                    int8_heads=args.int8_heads)
         priors = prior_boxes(get_config(args.dataset, img_dim), device)
         t0 = time.perf_counter()
-        all_boxes = run_inference(net, dataset, task, priors, img_dim,
-                                  batch_size=args.batch_size,
-                                  top_k=args.top_k,
-                                  approx_top_k=args.approx_topk == "on",
-                                  pool_size=args.pool_size)
+        if args.host_nms:
+            all_boxes = run_inference_host_nms(net, dataset, task, priors,
+                                               img_dim, args.batch_size)
+        else:
+            all_boxes = run_inference(net, dataset, task, priors, img_dim,
+                                      batch_size=args.batch_size,
+                                      top_k=args.top_k,
+                                      approx_top_k=args.approx_topk == "on",
+                                      pool_size=args.pool_size)
         seconds = time.perf_counter() - t0
         speed = {"images": len(dataset), "seconds": seconds,
                  "images_per_s": len(dataset) / seconds,
                  "batch_size": args.batch_size, "device": str(device),
-                 "int8": args.int8, "bf16": args.bf16}
+                 "int8": args.int8, "bf16": args.bf16,
+                 "host_nms": args.host_nms}
         if device.type == "cuda":
             speed["device_name"] = torch.cuda.get_device_name(device)
         logger.info("inference: %(images)d images in %(seconds).1f s, "

@@ -4,6 +4,8 @@
         --shot 5 --mixup --load-file weights/phase1.pth \\
         --save-folder weights/ [--device-augment --canvas 384] [--bf16] \\
         [--profile-dir trace/] [--device cuda|cpu]
+    python -m ct_tpu_torch.train -d COCO -p 1 --setting transfer \\
+        --save-folder weights/ [--worker-type process]
 
 The same phase/setting/method state machine and loop as ``train.py``: the
 training set of the few-shot protocol, weights loaded from ``--basenet``
@@ -35,7 +37,12 @@ iteration: loader, augmentation and step, ``StepTimer``) and
 ``data_time`` (the wait in ``loader.next()``). ``--profile-dir`` traces
 iterations 10–14 after the start (``utils/profiler.py``).
 
-The VOC root comes from ``VOC_ROOT`` (default ``data/VOCdevkit``). As in
+``-d VOC`` reads the VOC root in ``VOC_ROOT`` (default
+``data/VOCdevkit``); ``-d COCO`` (phase 1, ``--setting transfer``: the
+COCO-60 source pretraining) reads ``split_nonvoc_train2014`` and
+``split_nonvoc_valminusminival2014`` under ``COCO_ROOT`` (default
+``data/COCO``). ``--worker-type process`` runs the loader's workers as
+spawned processes, for the host augmentation. As in
 the reference, ``CT_ATTENTION_FLASH=0`` trains the CT attention with its
 blockwise backward instead of the flash one; it is read on every call of
 ``main``. Flags of what the port does not run yet raise and name the
@@ -65,9 +72,6 @@ UNPORTED = (
      "Queue 1 item 4 (gradient accumulation)"),
     ("--ndev > 1", lambda a: a.ndev > 1,
      "Queue 1 item 8 (data-parallel training)"),
-    ("--worker-type process", lambda a: a.worker_type == "process",
-     "Queue 1 item 5 (process workers)"),
-    ("-d COCO", lambda a: a.dataset != "VOC", "Queue 1 item 5 (COCO data)"),
 )
 
 
@@ -79,7 +83,7 @@ def parse_args(argv=None):
     parser.add_argument("--basenet", default="./weights/vgg16_reducedfc.pth",
                         help="Pretrained base model (phase 1)")
     parser.add_argument("-d", "--dataset", default="VOC",
-                        help="VOC (COCO is not ported).")
+                        help="VOC or COCO dataset.")
     parser.add_argument("--split", type=int, default=1,
                         help="VOC base/novel split, for VOC only.")
     parser.add_argument("--setting", default="transfer",
@@ -101,10 +105,12 @@ def parse_args(argv=None):
     parser.add_argument("--ndev", type=int, default=0,
                         help="Devices (one card only in the port)")
     parser.add_argument("--num-workers", type=int, default=4,
-                        help="Host data-pipeline worker threads")
+                        help="Host data-pipeline workers")
     parser.add_argument("--worker-type", default="thread",
                         choices=["thread", "process"],
-                        help="Loader workers (threads only in the port)")
+                        help="Loader worker pool: threads (for "
+                             "--device-augment) or spawned processes (for "
+                             "the host augmentation, which holds the GIL)")
     parser.add_argument("--momentum", type=float, default=0.9)
     parser.add_argument("--weight-decay", type=float, default=5e-4)
     parser.add_argument("--gamma", type=float, default=0.1)
@@ -151,10 +157,31 @@ def check_ported(args, unported=UNPORTED) -> None:
                              f"(ROADMAP: {item})")
 
 
-def train_sets(args):
-    if args.phase == 2 and (args.setting == "incre" or args.instance_shot):
-        return [("2007", "trainval")]
-    return [("2007", "trainval"), ("2012", "trainval")]
+def training_set(args, preproc):
+    """The training set of ``args.dataset``: the VOC sets of the few-shot
+    protocol, or COCO's ``split_nonvoc_train2014`` and
+    ``split_nonvoc_valminusminival2014`` (the COCO-60 source domain)."""
+    from ct_tpu_torch.data.coco import COCODetection
+    from ct_tpu_torch.data.voc import AnnotationTransform, VOCDetection
+
+    if args.dataset == "VOC":
+        if args.phase == 2 and (args.setting == "incre"
+                                or args.instance_shot):
+            sets = [("2007", "trainval")]
+        else:
+            sets = [("2007", "trainval"), ("2012", "trainval")]
+        return VOCDetection(
+            os.environ.get("VOC_ROOT", "data/VOCdevkit"), sets, preproc,
+            AnnotationTransform(0 if args.setting == "transfer"
+                                else args.split),
+            phase=args.phase, setting=args.setting, split=args.split,
+            shot=args.shot, instance_shot=args.instance_shot)
+    if args.dataset == "COCO":
+        return COCODetection(os.environ.get("COCO_ROOT", "data/COCO"),
+                             [("2014", "split_nonvoc_train"),
+                              ("2014", "split_nonvoc_valminusminival")],
+                             preproc)
+    raise ValueError(f"Unknown dataset: {args.dataset}")
 
 
 # the random streams of the device route, as train.py's PRNG keys 1, 2, 3
@@ -229,7 +256,6 @@ def main(argv=None) -> dict:
     from ct_tpu_torch.data.augment import RawCanvasTransform, TrainAugment
     from ct_tpu_torch.data.augment_device import mixup_batch
     from ct_tpu_torch.data.loader import Loader
-    from ct_tpu_torch.data.voc import AnnotationTransform, VOCDetection
     from ct_tpu_torch.models.rfbnet import build_net
     from ct_tpu_torch.ops.priors import prior_boxes
     from ct_tpu_torch.train.checkpointer import (
@@ -275,12 +301,7 @@ def main(argv=None) -> dict:
 
     preproc = (RawCanvasTransform(args.canvas) if args.device_augment
                else TrainAugment(img_dim, RGB_MEANS, EXPAND_PROB))
-    dataset = VOCDetection(
-        os.environ.get("VOC_ROOT", "data/VOCdevkit"), train_sets(args),
-        preproc,
-        AnnotationTransform(0 if args.setting == "transfer" else args.split),
-        phase=args.phase, setting=args.setting, split=args.split,
-        shot=args.shot, instance_shot=args.instance_shot)
+    dataset = training_set(args, preproc)
 
     # the reference's switch between the CT attention's two backwards
     ct_flash = os.environ.get("CT_ATTENTION_FLASH", "1") != "0"
@@ -301,7 +322,7 @@ def main(argv=None) -> dict:
     periodic = PeriodicCheckpointer(ck, args.checkpoint_period, args.max_iter)
 
     loader = Loader(dataset, args.batch_size, num_workers=args.num_workers,
-                    max_objs=args.max_objs, seed=0)
+                    max_objs=args.max_objs, seed=0, workers=args.worker_type)
     writers = [CommonMetricPrinter(args.max_iter),
                JSONWriter(os.path.join(args.save_folder, "metrics.json")),
                TensorboardWriter(args.save_folder)]

@@ -21,7 +21,9 @@ from ct_tpu_torch.ops.priors import prior_boxes, prior_boxes_np
 
 @pytest.mark.parametrize("name,count", [("TINY_64", 16 * 16 * 4 + 8 * 8 * 4),
                                         ("VOC_300", 11620),
-                                        ("VOC_512", 32756)])
+                                        ("VOC_512", 32756),
+                                        ("COCO_300", 11620),
+                                        ("COCO_512", 32756)])
 def test_priors_match_jax(name, count):
     ours = prior_boxes_np(getattr(tcfg, name))
     ref = j_prior_boxes_np(getattr(jcfg, name))

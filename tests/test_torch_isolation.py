@@ -51,7 +51,12 @@ def test_the_checks_cover_every_module_of_the_port():
     mods = set(port_modules())
     assert {"chip_smoke", "ct_tpu_torch.models.fold_bn",
             "ct_tpu_torch.models.quantize", "ct_tpu_torch.ops.nms",
-            "ct_tpu_torch.ops.ct_attention", "ct_tpu_torch.test"} <= mods
+            "ct_tpu_torch.ops.ct_attention", "ct_tpu_torch.test",
+            "ct_tpu_torch.native", "ct_tpu_torch.data.mask",
+            "ct_tpu_torch.data.coco", "ct_tpu_torch.data.cocoeval",
+            "ct_tpu_torch.data.split_coco", "ct_tpu_torch.data.split_voc",
+            "ct_tpu_torch.data.make_shots",
+            "ct_tpu_torch.tools.coco_fixture"} <= mods
     n_files = sum(len([f for f in files if f.endswith(".py")])
                   for root, _, files in os.walk(PACKAGE)
                   if "__pycache__" not in root)
@@ -130,8 +135,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_port_adds_no_large_file():
     paths = port_sources() + [
-        os.path.join(PACKAGE, "csrc", f)
-        for f in os.listdir(os.path.join(PACKAGE, "csrc"))]
+        os.path.join(PACKAGE, sub, f) for sub in ("csrc", "native")
+        for f in os.listdir(os.path.join(PACKAGE, sub))
+        if f.endswith((".cu", ".cuh", ".cpp"))]
     paths += [os.path.join(REPO, "tests", f)
               for f in os.listdir(os.path.join(REPO, "tests"))
               if f.startswith("test_torch_")]

@@ -397,8 +397,7 @@ def test_eval_cli_int8_on_a_small_voc_root(tmp_path, monkeypatch, caplog):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--host-nms"], "Queue 1 item 3"),
-    (["--ndev", "2"], "Queue 1 item 8"), (["-d", "COCO"], "Queue 1 item 5"),
+    (["--ndev", "2"], "Queue 1 item 8"),
     (["--pallas-ct", "on"], "always runs its CT kernels")])
 def test_eval_cli_refuses_what_is_not_ported(flag, item):
     from ct_tpu_torch import test as cli
