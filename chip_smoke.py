@@ -201,8 +201,30 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            package's band (match rate > 0.95 at IoU 0.75, p99 box error 0
            px). The CLIs' output goes to build/chip_smoke/coco_*.txt and
            voc500_*_nms.txt.
-11. kernels one line listing every kernel of the port with its launches
-           on its path's phase, error and times.
+11. size512 RFBNet512 (P=32,756, K=4,964) as bench.py's 512 configs run
+           it, each part with its seconds: rows 1, 2, 3 and 6 in f32 and
+           bf16 against their plain versions at B=2, C=15 and 60 (the
+           ragged last key tile: 4,964 = 77·64 + 36), under the kernel
+           phase's bands and timed there, row 7 bit for bit at
+           [16, 64, 512, 512] (f32 and bf16); one 512 image of the
+           phase-2 incre model on seeded weights on the card and the CPU
+           (the model phase's bands); accumulation on the card (accum 2 of
+           a duplicated batch against accum 1, the fused optimizer against
+           the per-leaf one over 3 updates, JAX's bands); phase-2 transfer
+           at batch 64 in 4 micro-batches (``--accum-steps 4``), flash, in
+           f32 and bf16 (1 + 3 steps, images/s, peak memory, 4 launches a
+           step of rows 2, 3 and 7's two, a profiled step); serving at
+           batch 32 in bf16 with top-k 128 in a pool of 512, then the
+           int8 full config (images/s, launches, NMS candidates within
+           the kernel's cap); the train CLI at ``-s 512 --accum-steps 4
+           --fused-opt on --device-augment --canvas 640 --bf16`` for 8
+           iterations on the VOC fixture and the eval CLI at ``-s 512``
+           on its checkpoint over 64 test images (a smoke). Their output
+           goes to build/chip_smoke/train_cli_512*.txt and the profiles
+           to profile_{train,serve}512_*.txt.
+12. kernels one line listing every kernel of the port with its launches
+           on its path's phase, error and times (rows 1, 2, 3, 6, 7 and 8
+           also at 512).
 
 Any failure raises and exits non-zero with no "ok" line. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -1922,11 +1944,12 @@ def card_vs_cpu_detections(step, cpu_net, images, sizes) -> dict:
     """The card's eval step and ``cpu_net``'s on the first image: the
     detections must match (``compare_detections`` at MATCH_IOU and
     MATCH_SCORE)."""
-    from ct_tpu_torch.config import VOC_300
+    from ct_tpu_torch.config import get_config
     from ct_tpu_torch.eval import compare_detections, make_eval_step
     from ct_tpu_torch.ops.priors import prior_boxes
 
-    cpu_step = make_eval_step(cpu_net, prior_boxes(VOC_300, "cpu"))
+    cpu_step = make_eval_step(cpu_net, prior_boxes(
+        get_config("VOC", cpu_net.size), "cpu"))
     cpu_dets = cpu_step(images[:1], sizes[:1])
     gpu_dets = step(images[:1].cuda(), sizes[:1].cuda())
     agree = compare_detections(type(gpu_dets)(*(t.cpu() for t in gpu_dets)),
@@ -2248,12 +2271,13 @@ def step_kernels(flash: bool, bf16: bool = False) -> tuple:
     return tuple(n + "_bf16" for n in used) if bf16 else used
 
 
-def train_steps(step, train_state, batch, flash: bool, steps: int) -> dict:
+def train_steps(step, train_state, batch, flash: bool, steps: int,
+                accum: int = 1) -> dict:
     """1 warm-up and ``steps`` timed train steps on the card with the CT
     attention's flash or blockwise backward: images/s from the median
     step, finite losses, peak memory, and the launches of the training
     kernels over them, which must be those of the chosen backward in the
-    model's type."""
+    model's type, ``accum`` a step (one a micro-batch)."""
     import torch
 
     train_state.model.ct_flash = flash
@@ -2270,7 +2294,8 @@ def train_steps(step, train_state, batch, flash: bool, steps: int) -> dict:
         times.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, fn in counts.items()}
     used = step_kernels(flash, train_state.model.dtype == torch.bfloat16)
-    expected = {name: 1 + steps if name in used else 0 for name in counts}
+    expected = {name: accum * (1 + steps) if name in used else 0
+                for name in counts}
     if launches != expected:
         raise AssertionError(f"launches over {1 + steps} train steps: "
                              f"{launches}, expected {expected}")
@@ -2279,6 +2304,7 @@ def train_steps(step, train_state, batch, flash: bool, steps: int) -> dict:
     median_s = sorted(times[1:])[steps // 2]
     n = batch["image"].shape[0]
     return {"backward": "flash" if flash else "blockwise", "batch": n,
+            "accum_steps": accum,
             "dtype": str(train_state.model.dtype).replace("torch.", ""),
             "warmup_s": times[0], "step_s": times[1:],
             "images_per_s": n / median_s, "launches": launches,
@@ -3128,6 +3154,478 @@ def phase_bench(out_dir: str) -> dict:
     return res
 
 
+# the size512 phase: RFBNet512 (P = 32,756 priors, K = 4,964 CT keys) as
+# bench.py's 512 configs run it: training at batch 64 in 4 micro-batches
+# of 16 (--accum-steps 4), serving at batch 32; the 512 eval CLI over the
+# first SIZE512_EVAL_IMAGES fixture test images
+SIZE512, P512, K512 = 512, 32756, 4964
+ACCUM512, SERVE512_BATCH = 4, 32
+SIZE512_CLI_ITERS, SIZE512_EVAL_IMAGES = 8, 64
+# the device augmentation's canvas at 512 (scripts/real_parity.py)
+CANVAS512 = (5 * SIZE512 + 3) // 4
+# accumulation on the card: JAX's own bands for accum 2 of a duplicated
+# batch against accum 1 (tests/test_train_opt.py), and for its fused
+# optimizer against its per-leaf one
+ACCUM_LOSS_RTOL = 2e-5
+ACCUM_PARAM_RTOL, ACCUM_PARAM_ATOL = 1e-4, 1e-6
+FUSED_RTOL, FUSED_ATOL = 1e-6, 1e-7
+# the solver of those checks: warmup over two of the three updates, a
+# decay at the third
+SOLVER512 = dict(lr=2e-3, steps=(3,), warmup_iters=2)
+# the training kernels, by the names the profiler gives them
+TRAIN_PROFILED = ("ct_attention_kernel", "ct_attention_bf16_kernel",
+                  "bwd_dq_kernel", "bwd_dkdv_kernel", "dq_kernel",
+                  "dkdv_kernel", "prep_kv", "prep_q", "pool2x2_relu")
+
+
+def seeded_state512(task, seed: int) -> dict:
+    """The port's seeded init of a 512 model, its BN statistics and CT
+    parameters randomized (their inits are zeros or ones), as the CPU
+    tests seed it (tests/test_torch_train_accum.py ``seeded_state``)."""
+    import torch
+
+    from ct_tpu_torch.models.rfbnet import build_net
+
+    torch.manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for key, val in build_net(task, SIZE512,
+                              device="cpu").state_dict().items():
+        if key.endswith("running_mean"):
+            val = torch.randn(val.shape, generator=gen) * 0.1
+        elif key.endswith("running_var"):
+            val = torch.rand(val.shape, generator=gen) + 0.5
+        elif key.startswith(("Wz", "OBJ_Target", "fc_base")):
+            val = torch.randn(val.shape, generator=gen) * 0.3
+        state[key] = val
+    return state
+
+
+def size512_kernels(seed: int) -> dict:
+    """Rows 1, 2, 3 and 6, f32 and bf16, against their plain versions at
+    the 512 shapes (B=2, C=15 with N=5 and C=60 with N=20), under the
+    kernel phase's bands, timed there; row 7 bit for bit at conv1's 512 map
+    at the micro-batch ([16, 64, 512, 512]), f32 and bf16."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + SIZE512)
+    res = {}
+    for c, n in ((15, 5), (60, 20)):
+        res[f"fwd_c{c}"] = attention_case(rng, 2, c, P512, K512, True)
+        res[f"train_c{c}"] = training_attention_case(rng, 2, c, P512, K512,
+                                                     True)
+        res[f"serving_c{c}"] = serving_case(rng, 2, c, P512, K512, n, True)
+        res[f"bf16_fwd_c{c}"] = bf16_attention_case(rng, 2, c, P512, K512,
+                                                    True)
+        res[f"bf16_train_c{c}"] = bf16_training_case(rng, 2, c, P512, K512,
+                                                     True)
+        res[f"bf16_serving_c{c}"] = bf16_serving_case(rng, 2, c, P512, K512,
+                                                      n, True)
+    shape = (TRAIN_BATCH // ACCUM512, 64, SIZE512, SIZE512)
+    res["pool"] = pool_case(rng, shape, True)
+    res["bf16_pool"] = bf16_pool_case(rng, shape, True)
+    return res
+
+
+def size512_card_vs_cpu(seed: int) -> dict:
+    """One 512 image through the phase-2 incre model on seeded weights, on
+    the card and on the CPU. The image is of unit scale, as the CPU tests
+    feed seeded weights (at image scale they saturate the CT softmax).
+    Untrained heads regress boxes at random, so hundreds of boxes of one
+    class overlap with scores a few 1e-6 apart, and a score difference of
+    ~2e-5 (two f32 trunks summed in other orders) reorders them before
+    NMS: which of two such boxes survives is not the port's to decide
+    (measured on the card: 192 of 195 detections above the cap's
+    near-ties matched). So the check is split where the 300 model's
+    detections need not be: the forward's outputs, card against CPU, by
+    the CPU tests' bands (logits atol 2e-3, softmaxed scores 1e-4,
+    rtol 1e-3), and the card's post-processing (the NMS kernel) against the
+    CPU's on the card's own outputs, by the model phase's bands (the same
+    count, IoU ≥ 0.999, |Δscore| ≤ 1e-4); the detections of the two
+    whole runs are compared as a reading."""
+    import numpy as np
+    import torch
+
+    from ct_tpu_torch.config import VOC_512, resolve_task
+    from ct_tpu_torch.eval import compare_detections
+    from ct_tpu_torch.models.rfbnet import build_net, eval_scores
+    from ct_tpu_torch.ops.detection import postprocess
+    from ct_tpu_torch.ops.nms import nms_mask
+    from ct_tpu_torch.ops.priors import prior_boxes
+
+    task = resolve_task(2, "incre", "ours", "VOC")
+    state = seeded_state512(task, seed)
+    image = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (1, 3, SIZE512, SIZE512)).astype(np.float32))
+    sizes = torch.tensor([[375, 500]])
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        net = build_net(task, SIZE512, device=dev)
+        net.load_state_dict(state)
+        with torch.inference_mode():
+            preds = net(image.to(dev))
+            conf, obj = eval_scores(preds)
+        outs[dev] = {"loc": preds.loc, "conf_logits": preds.conf,
+                     "obj_logits": preds.obj, "conf": conf, "obj": obj}
+        del net
+    res = {"forward": {}}
+    for name, atol in (("loc", 2e-3), ("conf_logits", 2e-3),
+                       ("obj_logits", 2e-3), ("conf", MATCH_SCORE),
+                       ("obj", MATCH_SCORE)):
+        a, b = outs["cuda"][name].cpu(), outs["cpu"][name]
+        excess = ((a - b).abs() - atol - 1e-3 * b.abs()).max().item()
+        res["forward"][name] = {"max_abs_err": (a - b).abs().max().item(),
+                                "atol": atol, "ok": excess <= 0}
+
+    def detections(o):
+        dev = o["loc"].device
+        with torch.inference_mode():
+            d = postprocess(o["loc"], o["conf"], o["obj"],
+                            prior_boxes(VOC_512, dev),
+                            image_sizes=sizes.to(dev))
+        return type(d)(*(t.cpu() for t in d))
+
+    before = nms_mask.launches
+    card = detections(outs["cuda"])
+    res["nms_launches"] = nms_mask.launches - before
+    res["postprocess"] = compare_detections(
+        card, detections({k: v.cpu() for k, v in outs["cuda"].items()}),
+        iou_tol=MATCH_IOU, score_tol=MATCH_SCORE)
+    res["whole_runs_reading"] = compare_detections(
+        card, detections(outs["cpu"]), iou_tol=MATCH_IOU,
+        score_tol=MATCH_SCORE)
+    res["ok"] = bool(all(v["ok"] for v in res["forward"].values())
+                     and res["postprocess"]["ok"]
+                     and res["postprocess"]["count_a"] > 0
+                     and res["nms_launches"] == 1)
+    if not res["ok"]:
+        raise AssertionError(f"the 512 model on the card differs from the "
+                             f"CPU: {res}")
+    return res
+
+
+def size512_accum(seed: int) -> dict:
+    """Accumulation on the card (phase-2 incre at 512, seeded weights):
+    accum 2 of a duplicated batch [v, v] against accum 1, within JAX's
+    own bands (BatchNorm sees the same statistics in either); the fused
+    flavour (torch's fused SGD step) against the per-leaf one over 3
+    updates of seeded gradients, within JAX's band between its two
+    flavours, each update timed with CUDA events."""
+    import torch
+
+    from ct_tpu_torch.config import VOC_512, resolve_task
+    from ct_tpu_torch.models.rfbnet import build_net
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.train.solver import SolverConfig, build_optimizer
+    from ct_tpu_torch.train.step import (
+        LOSS_KEYS, TrainState, make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    task = resolve_task(2, "incre", "ours", "VOC")
+    state = seeded_state512(task, seed + 1)
+    half = dict(seeded_targets(seed + 70, 2),
+                image=seeded_images(seed + 70, 2, SIZE512))
+    batch = {k: torch.cat([v, v]).to(dev) for k, v in half.items()}
+    priors = prior_boxes(VOC_512, dev)
+
+    def fresh(fused=False):
+        net = build_net(task, SIZE512, device=dev)
+        net.load_state_dict(state)
+        return TrainState(net, *build_optimizer(
+            net, task, SolverConfig(**SOLVER512), fused=fused))
+
+    runs = {}
+    for accum in (1, 2):
+        train_state = fresh()
+        losses = make_train_step(priors, accum_steps=accum)(train_state,
+                                                            batch)
+        runs[accum] = ({k: v.item() for k, v in losses.items()},
+                       {n: p.detach().clone() for n, p in
+                        train_state.model.named_parameters()})
+        del train_state
+    (l1, p1), (l2, p2) = runs[1], runs[2]
+    loss_rel = {k: abs(l2[k] - l1[k]) / abs(l1[k])
+                for k in LOSS_KEYS + ("total_loss",)}
+    param_excess = max(((p2[n] - p1[n]).abs() - ACCUM_PARAM_ATOL
+                        - ACCUM_PARAM_RTOL * p1[n].abs()).max().item()
+                       for n in p1)
+    res = {"batch": 4, "accum_steps": 2, "losses_accum1": l1,
+           "loss_rel_err": loss_rel, "loss_rtol": ACCUM_LOSS_RTOL,
+           "num_pos": [l1["num_pos"], l2["num_pos"]],
+           "param_rtol": ACCUM_PARAM_RTOL, "param_atol": ACCUM_PARAM_ATOL,
+           "param_worst_excess": param_excess}
+    if not (max(loss_rel.values()) <= ACCUM_LOSS_RTOL
+            and l1["num_pos"] == l2["num_pos"] and param_excess <= 0):
+        raise AssertionError(f"accum 2 of a duplicated batch differs from "
+                             f"accum 1 on the card: {res}")
+    del runs, p1, p2
+
+    after, step_ms = {}, {}
+    for fused in (False, True):
+        train_state = fresh(fused)
+        if any(bool(g["fused"]) != fused
+               for g in train_state.optimizer.param_groups):
+            raise AssertionError("the optimizer flavour is wrong")
+        params = dict(train_state.model.named_parameters())
+        times = []
+        for i in range(3):
+            gen = torch.Generator(device=dev).manual_seed(seed + i)
+            for name in sorted(params):
+                params[name].grad = torch.randn(
+                    params[name].shape, generator=gen, device=dev) * 0.01
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            train_state.optimizer.step()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            train_state.scheduler.step()
+            train_state.optimizer.zero_grad()
+        after[fused] = {n: p.detach().clone() for n, p in params.items()}
+        # each update's ms; the first allocates the momentum buffers
+        step_ms["fused" if fused else "per_leaf"] = times
+        del train_state, params
+    excess = max(((after[True][n] - after[False][n]).abs() - FUSED_ATOL
+                  - FUSED_RTOL * after[False][n].abs()).max().item()
+                 for n in after[False])
+    res["fused_vs_per_leaf"] = {
+        "updates": 3, "rtol": FUSED_RTOL, "atol": FUSED_ATOL,
+        "worst_excess": excess, "optimizer_step_ms": step_ms,
+        "parameters": sum(p.numel() for p in after[False].values()),
+        "max_abs_diff": max((after[True][n] - after[False][n]).abs().max()
+                            .item() for n in after[False])}
+    if excess > 0:
+        raise AssertionError(f"the fused optimizer differs from the "
+                             f"per-leaf one on the card: {res}")
+    return res
+
+
+def size512_train(seed: int, out_dir: str) -> dict:
+    """bench.py's 512 train config: phase-2 transfer at 512 from seeded
+    weights, batch 64 in 4 micro-batches (--accum-steps 4), the flash
+    backward; f32 with TF32 off, then bf16. 1 warm-up and 3 timed steps
+    each (images/s, peak memory, the training kernels' launches: 4 a step
+    of rows 2, 3 and 7's two), and one profiled step with the device time
+    of the port's kernels in it."""
+    import torch
+
+    from ct_tpu_torch.config import VOC_512, resolve_task
+    from ct_tpu_torch.models.rfbnet import build_net
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.train.solver import SolverConfig, build_optimizer
+    from ct_tpu_torch.train.step import TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    task = resolve_task(2, "transfer", "ours", "VOC")
+    batch = dict(seeded_targets(seed + 80, TRAIN_BATCH),
+                 image=seeded_images(seed + 80, TRAIN_BATCH, SIZE512))
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    step = make_train_step(prior_boxes(VOC_512, dev), accum_steps=ACCUM512)
+    res = {"classes": task.src_cls_dim}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        torch.manual_seed(seed)
+        net = build_net(task, SIZE512, device=dev, dtype=dtype)
+        train_state = TrainState(net, *build_optimizer(net, task,
+                                                       SolverConfig()))
+        res[name] = train_steps(step, train_state, batch, True, TRAIN_STEPS,
+                                accum=ACCUM512)
+        res[name]["profile"] = profile_step(
+            lambda: step(train_state, batch), out_dir,
+            f"profile_train512_{name}.txt", TRAIN_PROFILED)
+        del net, train_state
+        torch.cuda.empty_cache()
+    return res
+
+
+def size512_serving(seed: int, out_dir: str) -> dict:
+    """bench.py's 512 serving configs on the phase-2 transfer model from
+    seeded weights at batch 32: bf16 with approximate top-k 128 in a pool
+    of 512, then the int8 full config (BN folded, calibrated on 8 images,
+    int8 convs and heads, ``SKIP_CT_ONLY``, ``vgg_pool_chains(512)``, bf16,
+    the same NMS options). 1 warm-up and 3 timed steps each (images/s, the
+    launches of the bf16 CT kernel or serving head and of NMS, a profiled
+    step). NMS is handed ``top_k`` candidates a row (``batched_nms`` pads
+    the pool's to it), within the kernel's MAX_NMS_K at the default 200
+    and at the serving 128; its wrapper refuses more."""
+    import torch
+
+    from ct_tpu_torch.config import VOC_512, resolve_task
+    from ct_tpu_torch.eval import make_eval_step
+    from ct_tpu_torch.models.rfbnet import build_net
+    from ct_tpu_torch.ops.ct_attention import (
+        ct_attention_cm_bf16, ct_attention_serving_bf16,
+    )
+    from ct_tpu_torch.ops.nms import MAX_NMS_K, nms_mask
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.test import serving_model
+
+    steps = 3
+    task = resolve_task(2, "transfer", "ours", "VOC")
+    options = {"approx_top_k": True, "top_k": 128, "pool_size": 512}
+    images = seeded_images(seed + 90, SERVE512_BATCH, SIZE512).cuda()
+    sizes = torch.tensor([[375, 500]] * SERVE512_BATCH).cuda()
+    priors = prior_boxes(VOC_512, "cuda")
+    torch.manual_seed(seed)
+    net = build_net(task, SIZE512, device="cuda", dtype=torch.bfloat16)
+    counts = {"ct_attention_cm_bf16": ct_attention_cm_bf16,
+              "ct_attention_serving_bf16": ct_attention_serving_bf16,
+              "nms_mask": nms_mask}
+    if not max(200, options["top_k"]) <= MAX_NMS_K:
+        raise AssertionError(f"NMS candidates per row above the kernel's "
+                             f"{MAX_NMS_K}")
+    torch.cuda.reset_peak_memory_stats()
+    expected = dict.fromkeys(counts, 1 + steps)
+    expected["ct_attention_serving_bf16"] = 0
+    res = {"bf16": eval_steps(make_eval_step(net, priors, **options),
+                              images, sizes, counts, expected, steps,
+                              out_dir, "profile_serve512_bf16.txt")}
+    t0 = time.perf_counter()
+    served, quant = serving_model(
+        net, seeded_images(seed + 91, 8, SIZE512), int8_heads=True)
+    torch.cuda.synchronize()
+    prep = {"quantized_convs": len(quant),
+            "chained": sum("out_scale" in q for q in quant.values()),
+            "prepare_s": time.perf_counter() - t0}
+    del net
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    expected = dict.fromkeys(counts, 1 + steps)
+    expected["ct_attention_cm_bf16"] = 0
+    res["int8_full"] = dict(prep, **eval_steps(
+        make_eval_step(served, priors, **options), images, sizes,
+        counts, expected, steps, out_dir, "profile_serve512_full.txt"))
+    res["nms_k"], res["nms_k_cap"] = options["top_k"], MAX_NMS_K
+    return res
+
+
+def mini_voc_root(n: int, root: str) -> str:
+    """A VOC root with the first ``n`` test images of the fixture
+    (symlinks), for the 512 eval CLI."""
+    import shutil
+
+    src = os.path.abspath(os.path.join(VOC_ROOT, "VOC2007"))
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    dst = os.path.join(root, "VOC2007")
+    for sub in ("Annotations", "JPEGImages", os.path.join("ImageSets",
+                                                          "Main")):
+        os.makedirs(os.path.join(dst, sub))
+    with open(os.path.join(src, "ImageSets", "Main", "test.txt")) as f:
+        ids = [line.strip() for line in f][:n]
+    for i in ids:
+        for sub, ext in (("Annotations", ".xml"), ("JPEGImages", ".jpg")):
+            os.symlink(os.path.join(src, sub, i + ext),
+                       os.path.join(dst, sub, i + ext))
+    with open(os.path.join(dst, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("".join(i + "\n" for i in ids))
+    return root
+
+
+def size512_train_cli(out_dir: str) -> dict:
+    """``python -m ct_tpu_torch.train -s 512 --accum-steps 4 --fused-opt on
+    --device-augment --canvas 640 --bf16`` for SIZE512_CLI_ITERS
+    iterations at batch 64 on the VOC fixture (the incre split-1 5-shot
+    protocol of the train_cli phase, from ``ref_model.pth``: its 300
+    weights load where the shapes match), with the bf16 training kernels'
+    launches (4 a step, and 2 OBJ_Target init batches, not accumulated);
+    then the eval CLI at ``-s 512`` on its checkpoint over the first
+    SIZE512_EVAL_IMAGES test images: detections written, the eval kernels
+    launched, mAP a reading (a smoke: 8 iterations)."""
+    import json
+    import shutil
+
+    from ct_tpu_torch import test as eval_cli
+    from ct_tpu_torch.ops.ct_attention import ct_attention_cm
+    from ct_tpu_torch.ops.nms import nms_mask
+    from ct_tpu_torch.train import cli as train_cli
+
+    save = os.path.join(out_dir, "train_cli_512")
+    if os.path.exists(save):
+        shutil.rmtree(save)
+    os.makedirs(save)
+    os.environ["VOC_ROOT"] = VOC_ROOT
+    counts = training_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with Captured(os.path.join(out_dir, "train_cli_512.txt")):
+        last = train_cli.main([
+            "-s", str(SIZE512), "-p", "2", "--setting", "incre", "--split",
+            "1", "--shot", "5", "--accum-steps", str(ACCUM512),
+            "--fused-opt", "on", "--device-augment", "--canvas",
+            str(CANVAS512), "--bf16", "-b", str(TRAIN_BATCH),
+            "--init-iter", "2", "--max-iter", str(SIZE512_CLI_ITERS),
+            "--warmup-iter", "0", "--steps", "20", "--load-file", REF_MODEL,
+            "--save-folder", save])
+    res = {"train_s": time.perf_counter() - t0, "last": last,
+           "launches": {n: fn.launches for n, fn in counts.items()}}
+    with open(os.path.join(save, "metrics.json")) as f:
+        res["metrics_rows"] = [json.loads(line) for line in f]
+    init = {"pool2x2_relu_fwd_bf16": 2, "ct_attention_cm_bf16": 2}
+    expected = {n: ACCUM512 * SIZE512_CLI_ITERS + init.get(n, 0)
+                if n in step_kernels(True, bf16=True) else init.get(n, 0)
+                for n in counts}
+    if not (res["launches"] == expected
+            and [r["iteration"] for r in res["metrics_rows"]]
+            == [SIZE512_CLI_ITERS]
+            and all(math.isfinite(v) for r in res["metrics_rows"] + [last]
+                    for v in r.values())):
+        raise AssertionError(f"the 512 train CLI run is wrong: {res} "
+                             f"(expected launches {expected})")
+    row = res["metrics_rows"][-1]
+    res.update(iteration_s=row["time"], loader_wait_s=row["data_time"],
+               images_per_s=TRAIN_BATCH / row["time"])
+
+    eval_counts = {"ct_attention_cm": ct_attention_cm, "nms_mask": nms_mask}
+    for fn in eval_counts.values():
+        fn.launches = 0
+    os.environ["VOC_ROOT"] = mini_voc_root(
+        SIZE512_EVAL_IMAGES, os.path.join(out_dir, "voc512"))
+    t0 = time.perf_counter()
+    try:
+        with Captured(os.path.join(out_dir, "train_cli_512_eval.txt")):
+            scores = eval_cli.main([
+                "-s", str(SIZE512), "-p", "2", "--setting", "incre",
+                "--split", "1", "--load-file",
+                os.path.join(save, "model_final.pth"), "--save-folder",
+                save])
+    finally:
+        os.environ["VOC_ROOT"] = VOC_ROOT
+    res["eval_s"] = time.perf_counter() - t0
+    res["eval_launches"] = {n: fn.launches for n, fn in eval_counts.items()}
+    res["eval_mAP"] = scores["mAP"]
+    detections = os.path.join(save, "inference", "detections.pkl")
+    if not (os.path.exists(detections) and all(res["eval_launches"].values())
+            and 0 <= scores["mAP"] <= 1):
+        raise AssertionError(f"the 512 eval CLI run is wrong: {res}")
+    return res
+
+
+def phase_size512(seed: int, out_dir: str) -> dict:
+    """RFBNet512 on the card, each part with its seconds: the kernels at
+    the 512 shapes against their plain versions, card against CPU,
+    accumulation and the fused optimizer, bench.py's 512 train and serving
+    configs, and the 512 train and eval CLIs."""
+    import torch
+
+    res = {}
+    for name, fn in (("kernel", lambda: size512_kernels(seed)),
+                     ("card_vs_cpu", lambda: size512_card_vs_cpu(seed)),
+                     ("accum", lambda: size512_accum(seed)),
+                     ("train", lambda: size512_train(seed, out_dir)),
+                     ("serving", lambda: size512_serving(seed, out_dir)),
+                     ("train_cli", lambda: size512_train_cli(out_dir))):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        res[name + "_s"] = time.perf_counter() - t0
+        emit({"part": "size512." + name, "seconds": res[name + "_s"],
+              **res[name]})
+        torch.cuda.empty_cache()
+    return res
+
+
 def card_vs_cpu(task, net, batch, priors) -> dict:
     """One loss-and-gradients call at batch 2 from the same state on the
     card and on the CPU. The card's gradients are taken over the anchors
@@ -3314,6 +3812,67 @@ def kernels_line(results: dict) -> list:
             "kernels_ms_c15":
                 kern["bf16_rowmajor_bwd_timed_incre"]["kernels_ms"]},
     }
+    # the size512 phase: rows 1, 2, 3, 6 and 7 at the 512 shapes (B=2,
+    # both widths; row 7 at the micro-batch's conv1 map), their errors
+    # there, and their launches in its steps: 1 + 3 train steps of 4
+    # micro-batches, 1 + 3 serving steps in each config
+    s512, k512 = results["size512"], results["size512"]["kernel"]
+
+    def at512(key, sub=None, err="max_abs_err"):
+        out = {}
+        for c in (15, 60):
+            case = k512[f"{key}_c{c}"]
+            t = case[sub] if sub else case
+            out.update({f"{k}_512_c{c}": t[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms")})
+            out[f"max_abs_err_512_c{c}"] = t.get(err, case.get(err))
+        return out
+
+    def pool512(key, d):
+        t = k512[key]
+        return {**{f"{k}_512": t[d][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")},
+            "max_abs_err_512": t[f"{d}_max_abs_err"]}
+
+    train512 = {d: s512["train"][d]["launches"] for d in ("f32", "bf16")}
+    serve512 = {d: s512["serving"][d]["launches"]
+                for d in ("bf16", "int8_full")}
+    for name, more in (
+            ("ct_attention_cm", at512("fwd")),
+            ("ct_attention_cm_stats", dict(
+                at512("train", "stats", "stats_max_abs_err"),
+                launches_512=train512["f32"]["ct_attention_cm_stats"])),
+            ("ct_attention_cm_bwd_flash", dict(
+                at512("train", "bwd", "bwd_max_abs_err"),
+                launches_512=train512["f32"]["ct_attention_cm_bwd_flash"])),
+            ("ct_attention_serving", at512("serving")),
+            ("ct_attention_cm_bf16", dict(
+                at512("bf16_fwd"),
+                launches_512=serve512["bf16"]["ct_attention_cm_bf16"])),
+            ("ct_attention_serving_bf16", dict(
+                at512("bf16_serving"), launches_512=serve512["int8_full"][
+                    "ct_attention_serving_bf16"])),
+            ("ct_attention_cm_stats_bf16", dict(
+                at512("bf16_train", "stats"),
+                launches_512=train512["bf16"]["ct_attention_cm_stats_bf16"])),
+            ("ct_attention_cm_bwd_flash_bf16", dict(
+                at512("bf16_train", "bwd"), launches_512=train512["bf16"][
+                    "ct_attention_cm_bwd_flash_bf16"])),
+            ("pool2x2_relu_fwd", dict(
+                pool512("pool", "fwd"),
+                launches_512=train512["f32"]["pool2x2_relu_fwd"])),
+            ("pool2x2_relu_bwd", dict(
+                pool512("pool", "bwd"),
+                launches_512=train512["f32"]["pool2x2_relu_bwd"])),
+            ("pool2x2_relu_fwd_bf16", dict(
+                pool512("bf16_pool", "fwd"),
+                launches_512=train512["bf16"]["pool2x2_relu_fwd_bf16"])),
+            ("pool2x2_relu_bwd_bf16", dict(
+                pool512("bf16_pool", "bwd"),
+                launches_512=train512["bf16"]["pool2x2_relu_bwd_bf16"])),
+            ("nms_mask", {"launches_512": serve512["bf16"]["nms_mask"]
+                          + serve512["int8_full"]["nms_mask"]})):
+        extra[name] = {**extra.get(name, {}), **more}
     bf16 = results["bf16"]
     rows = [
         ("ct_attention_cm", "ct_attention_cm.cu", att + "146",
@@ -3438,7 +3997,9 @@ def main(argv=None) -> int:
                      ("train_cli", lambda: phase_train_cli(args.seed,
                                                            PROFILE_DIR)),
                      ("coco", lambda: phase_coco(PROFILE_DIR)),
-                     ("bench", lambda: phase_bench(PROFILE_DIR))):
+                     ("bench", lambda: phase_bench(PROFILE_DIR)),
+                     ("size512", lambda: phase_size512(args.seed,
+                                                       PROFILE_DIR))):
         t0 = time.perf_counter()
         results[name] = fn()
         emit({"phase": name, "seconds": time.perf_counter() - t0,

@@ -13,6 +13,11 @@ otherwise load ``path`` as weights only (the phase-2 fresh start, and the
 phase-1 VGG basenet, whose keys gain the ``base.`` prefix). Keys whose
 shapes do not match the model are skipped with one log line each, so a
 phase-1 checkpoint loads into a phase-2 model.
+
+Both ``--fused-opt`` flavours write ``torch.optim.SGD``'s state, told apart
+by its groups' ``fused`` entry: a resume whose checkpoint was written by the
+other flavour warns and goes on with that flavour, momentum and schedule
+carried over, as ``train.py`` does.
 """
 
 from __future__ import annotations
@@ -26,6 +31,11 @@ import torch
 logger = logging.getLogger(__name__)
 
 LAST_CHECKPOINT_TAG = "last_checkpoint"
+
+
+def _fused(param_groups) -> bool:
+    """Whether SGD's groups are the fused flavour's."""
+    return bool(param_groups[0].get("fused"))
 
 
 def _read(path: str) -> dict:
@@ -128,7 +138,13 @@ class Checkpointer:
         if not use_opt:
             return -1
         if optimizer is not None and "optimizer" in payload:
-            optimizer.load_state_dict(payload["optimizer"])
+            saved = payload["optimizer"]
+            fused = _fused(optimizer.param_groups)
+            if _fused(saved["param_groups"]) != fused:
+                logger.warning("optimizer state in checkpoint does not "
+                               "match --fused-opt=%s; resuming with the "
+                               "other flavor", "on" if fused else "off")
+            optimizer.load_state_dict(saved)
         if scheduler is not None and "scheduler" in payload:
             scheduler.load_state_dict(payload["scheduler"])
         return int(payload.get("iteration", -1))

@@ -4,6 +4,8 @@
         --shot 5 --mixup --load-file weights/phase1.pth \\
         --save-folder weights/ [--device-augment --canvas 384] [--bf16] \\
         [--profile-dir trace/] [--device cuda|cpu]
+    python -m ct_tpu_torch.train -s 512 -p 2 --setting incre ... \\
+        --accum-steps 4 [--fused-opt on] [--device-augment --canvas 640]
     python -m ct_tpu_torch.train -d COCO -p 1 --setting transfer \\
         --save-folder weights/ [--worker-type process]
 
@@ -28,6 +30,14 @@ generator of its own.
 and SGD; bf16 convolutions, BN outputs, CT projections and CT attention
 kernels), and the device augmentation emits bf16 images (its init batches
 too), which mixup blends in float32 and keeps in bf16.
+
+``--accum-steps N`` takes each batch in N micro-batches of B / N images
+and sums their gradients before one update (``train/step.py``): how the
+512 model trains at batch 64 on one card. ``--fused-opt on`` takes
+torch's fused SGD step (``train/solver.py``). A resume (``--resume``,
+phase 1) whose checkpoint was written by the other ``--fused-opt`` flavour
+warns and resumes with that flavour, momentum and schedule carried over,
+as ``train.py`` does.
 
 Metrics: the losses stay on the device and are fetched together at each
 write point (after 5 iterations, every 20 and at the last), where the
@@ -66,10 +76,6 @@ UNPORTED = (
     ("--orbax", lambda a: a.orbax, "Queue 1 item 8 (async checkpoints)"),
     ("--pallas-ct", lambda a: a.pallas_ct is not None,
      "none: the port always runs its CT kernels on the card"),
-    ("--fused-opt on", lambda a: a.fused_opt == "on",
-     "Queue 1 item 4 (fused optimizer)"),
-    ("--accum-steps > 1", lambda a: a.accum_steps > 1,
-     "Queue 1 item 4 (gradient accumulation)"),
     ("--ndev > 1", lambda a: a.ndev > 1,
      "Queue 1 item 8 (data-parallel training)"),
 )
@@ -139,12 +145,15 @@ def parse_args(argv=None):
                         help="Working-canvas size for --device-augment")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (float32 parameters)")
+    parser.add_argument("--fused-opt", choices=["on", "off"], default="off",
+                        help="torch's fused SGD step")
+    parser.add_argument("--accum-steps", type=int, default=1,
+                        help="Gradient accumulation: micro-batches per "
+                             "step (BatchNorm statistics per micro-batch)")
     # flags of train.py that the port does not run yet: each raises
     parser.add_argument("--pallas-ct", choices=["auto", "on", "off"],
                         default=None)
     parser.add_argument("--orbax", action="store_true")
-    parser.add_argument("--fused-opt", choices=["on", "off"], default="off")
-    parser.add_argument("--accum-steps", type=int, default=1)
     return parser.parse_args(argv)
 
 
@@ -246,6 +255,8 @@ def main(argv=None) -> dict:
     """Train; returns the last iteration's losses and lr."""
     args = parse_args(argv)
     check_ported(args)
+    if args.accum_steps > 1 and args.batch_size % args.accum_steps:
+        raise SystemExit("--batch-size must divide by --accum-steps")
 
     import torch
 
@@ -310,7 +321,8 @@ def main(argv=None) -> dict:
     torch.manual_seed(0)
     model = build_net(task, img_dim, device=device, ct_flash=ct_flash,
                       dtype=dtype).train()
-    optimizer, scheduler = build_optimizer(model, task, solver_cfg)
+    optimizer, scheduler = build_optimizer(model, task, solver_cfg,
+                                           fused=args.fused_opt == "on")
     ck = Checkpointer(args.save_folder)
     last = ck.resume_or_load(
         args.basenet if args.phase == 1 else args.load_file, model,
@@ -318,7 +330,8 @@ def main(argv=None) -> dict:
         load_optimizer=args.phase == 1)
     start_iter = last + 1
     state = TrainState(model, optimizer, scheduler, start_iter)
-    step_fn = make_train_step(priors, OVERLAP_THRESHOLD)
+    step_fn = make_train_step(priors, OVERLAP_THRESHOLD,
+                              accum_steps=args.accum_steps)
     periodic = PeriodicCheckpointer(ck, args.checkpoint_period, args.max_iter)
 
     loader = Loader(dataset, args.batch_size, num_workers=args.num_workers,

@@ -1,8 +1,8 @@
 """The train step: forward → matching → loss → backward → SGD → renorm.
 
 The port of ``ct_tpu/train/step.py`` (``TrainState``,
-``normalize_obj_target``, ``make_train_step`` with ``mesh=None`` and
-``accum_steps=1``). One step:
+``normalize_obj_target``, ``make_train_step`` with ``mesh=None``). One
+step:
 
   1. the forward in train mode (BatchNorm on batch statistics, running
      statistics updated at momentum 0.01);
@@ -12,6 +12,16 @@ The port of ``ct_tpu/train/step.py`` (``TrainState``,
      N = max(N, 1);
   5. one SGD update and one schedule step;
   6. with the CT head, the ``OBJ_Target`` rows renormalised to unit length.
+
+With ``accum_steps > 1`` (gradient accumulation, JAX's ``accumulate``)
+the batch is split along dim 0 into ``accum_steps`` contiguous
+micro-batches, and steps 1–4 run on each in order: BatchNorm normalises
+by the micro-batch's statistics and updates its running statistics once a
+micro-batch, each micro-batch mines its own anchors, and the gradients of
+the unnormalised sums add up in ``.grad``. After the last, every gradient
+and loss sum is divided once by the whole batch's N. Only a batch whose
+micro-batches are equal gives the single-batch step's result: BatchNorm
+sees B / accum_steps images.
 
 ``loss_and_grads`` is steps 1–4 alone: it leaves the gradients on the
 parameters and returns the N-normalised losses. It can be handed the
@@ -65,38 +75,54 @@ def batch_to(batch: Mapping, device) -> Dict[str, torch.Tensor]:
 
 def loss_and_grads(model: RFBNet, batch: Mapping[str, torch.Tensor],
                    priors_cs: torch.Tensor, match_threshold: float = 0.5,
-                   mask: Optional[torch.Tensor] = None):
+                   mask: Optional[torch.Tensor] = None,
+                   accum_steps: int = 1):
     """Steps 1–4: the gradients of the N-normalised total loss land in each
-    parameter's ``.grad``. Returns (the normalised losses and N as detached
-    scalars, the [B, P] mask of the anchors counted: positives and mined
-    hard negatives, or ``mask`` where given)."""
+    parameter's ``.grad``, over ``accum_steps`` micro-batches. Returns (the
+    normalised losses and N as detached scalars, the [B, P] mask of the
+    anchors counted: positives and mined hard negatives, or ``mask`` where
+    given)."""
+    b = batch["image"].shape[0]
+    if b % accum_steps:
+        raise ValueError(f"batch {b} does not divide by accum_steps "
+                         f"{accum_steps}")
+    micro = b // accum_steps
     model.train()
-    preds = model(batch["image"])
-    matched = match_batch(batch["boxes"], batch["labels"], batch["weights"],
-                          batch["valid"], priors_cs, match_threshold)
-    mined, num_pos = loss_mask(preds.obj, matched)
-    mask = mined if mask is None else mask
-    sums = masked_loss_sums(preds.loc, preds.conf, preds.obj, matched, mask)
-    n = num_pos.sum()
     model.zero_grad(set_to_none=True)
-    sum(sums[k] for k in LOSS_KEYS).backward()
-    n = torch.clamp(n.detach(), min=1.0)
+    totals, n, masks = dict.fromkeys(LOSS_KEYS, 0.0), 0.0, []
+    for i in range(accum_steps):
+        part = slice(i * micro, (i + 1) * micro)
+        mb = {k: v[part] for k, v in batch.items()}
+        preds = model(mb["image"])
+        matched = match_batch(mb["boxes"], mb["labels"], mb["weights"],
+                              mb["valid"], priors_cs, match_threshold)
+        mined, num_pos = loss_mask(preds.obj, matched)
+        counted = mined if mask is None else mask[part]
+        sums = masked_loss_sums(preds.loc, preds.conf, preds.obj, matched,
+                                counted)
+        sum(sums[k] for k in LOSS_KEYS).backward()
+        totals = {k: totals[k] + sums[k].detach() for k in LOSS_KEYS}
+        n = n + num_pos.sum().detach()
+        masks.append(counted)
+    n = torch.clamp(n, min=1.0)
     for p in model.parameters():
         if p.grad is not None:
             p.grad.div_(n)
-    losses = {k: sums[k].detach() / n for k in LOSS_KEYS}
+    losses = {k: totals[k] / n for k in LOSS_KEYS}
     losses["total_loss"] = sum(losses[k] for k in LOSS_KEYS)
     losses["num_pos"] = n
-    return losses, mask
+    return losses, torch.cat(masks)
 
 
-def make_train_step(priors_cs: torch.Tensor, match_threshold: float = 0.5):
+def make_train_step(priors_cs: torch.Tensor, match_threshold: float = 0.5,
+                    accum_steps: int = 1):
     """The train step: ``step(state, batch) → losses`` updates ``state`` in
-    place (model, optimizer, schedule, ``state.step``)."""
+    place (model, optimizer, schedule, ``state.step``), the batch taken in
+    ``accum_steps`` micro-batches."""
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         losses, _ = loss_and_grads(state.model, batch, priors_cs,
-                                   match_threshold)
+                                   match_threshold, accum_steps=accum_steps)
         state.optimizer.step()
         state.scheduler.step()
         if state.model.task.has_ct_head:

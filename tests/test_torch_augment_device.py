@@ -12,6 +12,8 @@
   expanded, cropped and untouched images, and the canvas is larger than
   the output, so JAX's antialias (none along x for a flipped image) is
   exercised.
+* The same at 512 on the 640² canvas ``--device-augment`` takes there
+  (``scripts/real_parity.py``), batch 2.
 * The first-accepted crop against ``_sample_crop`` on JAX's candidates.
 * ``apply_mixup`` with JAX's λ and offset against ``mixup_batch``, with and
   without ``zero_ignored``: weights and boxes within 1e-6, images within
@@ -160,6 +162,37 @@ def test_augment_matches_jax_on_jax_draws():
         seen["crop"] += int(cropped.sum())
         seen["neither"] += int((~cropped & ~expanded).sum())
     assert min(seen.values()) >= 2, seen
+
+
+def test_augment_matches_jax_at_512_on_a_640_canvas():
+    """``--device-augment`` at 512: the canvas of scripts/real_parity.py
+    ((5·512+3)//4 = 640), batch 2, with the bands above."""
+    out_size, canvas = 512, (5 * 512 + 3) // 4
+    assert canvas == 640
+    changed = 0
+    for seed in range(2):
+        images, boxes, labels, valid = make_batch(10 + seed, b=2, s=canvas)
+        key = jax.random.PRNGKey(200 + seed)
+        ref = J.augment_batch(key, jnp.asarray(images), jnp.asarray(boxes),
+                              jnp.asarray(labels), jnp.asarray(valid),
+                              out_size=out_size)
+        photo, geom = jax_params(key, boxes, valid)
+        ours = D.apply_augment(*port_batch(images, boxes, labels, valid),
+                               photo, geom, out_size=out_size)
+        assert ours["image"].shape == (2, 3, out_size, out_size)
+        np.testing.assert_allclose(ours["image"].permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(ref["image"]), rtol=0,
+                                   atol=IMG_TOL)
+        np.testing.assert_allclose(ours["boxes"].numpy(),
+                                   np.asarray(ref["boxes"]), rtol=0,
+                                   atol=BOX_TOL)
+        np.testing.assert_array_equal(ours["valid"].numpy(),
+                                      np.asarray(ref["valid"]))
+        np.testing.assert_array_equal(ours["labels"].numpy(),
+                                      np.asarray(ref["labels"]))
+        changed += int(((geom.roi != torch.tensor([0.0, 0, 1, 1])).any(1)
+                        | (geom.ws > 1) | (geom.hs > 1)).sum())
+    assert changed >= 1
 
 
 def test_flipped_images_are_not_antialiased_along_x():

@@ -12,8 +12,8 @@ randomized BN statistics and CT parameters (``random_jax_variables``).
 * Calibration: each conv's input absmax within rtol 1e-5 of JAX
   ``calibrate`` (the float convs before it sum in another order).
 * Quantization from JAX's calibration: ``kernel_int8``, ``kernel_scale``,
-  ``act_scale`` and ``out_scale`` bit for bit; the chain lists at 64 and
-  300 name the same convs.
+  ``act_scale`` and ``out_scale`` bit for bit; the chain lists at 64, 300
+  and 512 name the same convs.
 * One int8 conv vs JAX ``Conv2d`` on the same scales: the int32 sum is
   exact, so ``y`` agrees to 1 ulp (XLA may fuse the rescale and the bias
   add into one rounding); a chained producer's int8 output and its
@@ -194,7 +194,7 @@ def test_quantize_matches_jax_bit_for_bit(case, skip):
     assert sum("out_scale" in q for q in ours.values()) == 3
 
 
-@pytest.mark.parametrize("size", [64, 300])
+@pytest.mark.parametrize("size", [64, 300, 512])
 def test_pool_chains_name_the_jax_chains(size):
     ref = [tuple(torch_module_name((n,)) for n in pair)
            for pair in j_vgg_pool_chains(size)]

@@ -267,13 +267,11 @@ def test_checkpointer_skips_mismatched_shapes_and_prefixes_basenet(
 # each flag the port refuses, with the ROADMAP item its message names
 REFUSED = {"--orbax": "Queue 1 item 8",
            "--pallas-ct": "the port always runs its CT kernels",
-           "--fused-opt": "Queue 1 item 4", "--accum-steps": "Queue 1 item 4",
            "--ndev": "Queue 1 item 8"}
 
 
 @pytest.mark.parametrize("flag", [
-    ["--orbax"], ["--pallas-ct", "on"], ["--fused-opt", "on"],
-    ["--accum-steps", "2"], ["--ndev", "2"]])
+    ["--orbax"], ["--pallas-ct", "on"], ["--ndev", "2"]])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
     with pytest.raises(SystemExit, match=f"ROADMAP: .*{REFUSED[flag[0]]}"):
         cli.main(flag + ["--save-folder", str(tmp_path), "--device", "cpu"])
