@@ -222,7 +222,30 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            on its checkpoint over 64 test images (a smoke). Their output
            goes to build/chip_smoke/train_cli_512*.txt and the profiles
            to profile_{train,serve}512_*.txt.
-12. kernels one line listing every kernel of the port with its launches
+12. dp      data parallel on the one card, about a minute: (a) the
+           phase-2 incre RFBNet300 from ``ref_model.pth``, flash, in f32
+           and in bf16: one train step of two gloo ranks sharing the card
+           (``parallel/card_check.py``, started by ``parallel.distributed.
+           launch``; batch 32, 16 a rank, the gradients, loss sums and N
+           summed in one all-reduce) against one process's accum-2 step on
+           the same 32 images and the anchors it mined (handed to the
+           ranks through ``mask``), cuDNN deterministic: losses to rtol
+           1e-6, each gradient, updated parameter and BatchNorm statistic
+           within 1e-5 of its norm (the statistics against the mean of the
+           two micro-batches' updates from the same start), whether they
+           agree bit for bit, both ranks' state bit for bit, one launch a
+           step of rows 2, 3 and 7's two kernels on each rank; the ranks'
+           step time beside one process's and the all-reduce's; (b) the
+           two ranks' eval of 32 fixture images (16 a rank) against one
+           process's at batch 16: the same detections (scores rtol 1e-4,
+           boxes rtol 1e-3 / 0.5 px, JAX's mesh bands), rows 1 and 8
+           launched; (c) the train CLI under a launcher's environment at
+           NCCL world size 1 with ``--ndev 1 --orbax`` (phase 1 on the VOC
+           fixture, 3 iterations, then ``--resume`` to 5), and the eval
+           CLI on its asynchronous checkpoint over 32 test images; (d)
+           ``--ndev 2`` on the one card raises, naming both counts. The
+           CLIs' output goes to build/chip_smoke/train_cli_dp_*.txt.
+13. kernels one line listing every kernel of the port with its launches
            on its path's phase, error and times (rows 1, 2, 3, 6, 7 and 8
            also at 512).
 
@@ -3626,6 +3649,308 @@ def phase_size512(seed: int, out_dir: str) -> dict:
     return res
 
 
+# the dp phase: the global batch of the two ranks' train step (16 a rank),
+# its timed steps, and the fixture images of its eval
+DP_BATCH, DP_TIMED_STEPS, DP_EVAL_IMAGES = 32, 3, 32
+# the two ranks' step against one process's accum-2 step on the same
+# images and anchors: the losses to rtol DP_LOSS_RTOL, each gradient,
+# updated parameter and averaged BatchNorm statistic within DP_REL of its
+# norm (with cuDNN deterministic both may agree bit for bit; the phase
+# line records whether they did)
+DP_LOSS_RTOL, DP_REL = 1e-6, 1e-5
+# the train CLI at NCCL world size 1: iterations before and after --resume
+DP_CLI_ITERS = (3, 5)
+
+
+def dp_one_process(batch, dtype) -> dict:
+    """One process's step on the card as the two ranks take it: the
+    phase-2 incre model from ``ref_model.pth``, ``accum_steps=2`` on the
+    global batch (a micro-batch each rank's block), then SGD, schedule
+    and renorm; the mean of the two micro-batches' BatchNorm updates,
+    each taken from the start alone; and DP_TIMED_STEPS more steps."""
+    import torch
+
+    from ct_tpu_torch.config import VOC_300, resolve_task
+    from ct_tpu_torch.models.convert import load_reference_pth
+    from ct_tpu_torch.models.rfbnet import build_net
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.parallel.card_check import flat_state
+    from ct_tpu_torch.parallel.mesh import bn_running_stats
+    from ct_tpu_torch.train.solver import SolverConfig, build_optimizer
+    from ct_tpu_torch.train.step import loss_and_grads, normalize_obj_target
+
+    dev = torch.device("cuda")
+    task = resolve_task(2, "incre", "ours", "VOC")
+    state = load_reference_pth(REF_MODEL)
+    priors = prior_boxes(VOC_300, dev)
+
+    def fresh():
+        net = build_net(task, 300, device=dev, dtype=dtype)
+        net.load_state_dict(state)
+        return net
+
+    stats = []
+    for half in (slice(0, DP_BATCH // 2), slice(DP_BATCH // 2, DP_BATCH)):
+        net = fresh().train()
+        with torch.no_grad():
+            net(batch["image"][half])
+        stats.append(torch.cat([t.reshape(-1).float()
+                                for t in bn_running_stats(net)]))
+    net = fresh()
+    opt, sched = build_optimizer(net, task, SolverConfig(**DP_SOLVER))
+    times, out = [], {}
+    for i in range(1 + DP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, mask = loss_and_grads(net, batch, priors, 0.5,
+                                      mask=out.get("mask_t"), accum_steps=2)
+        if i == 0:
+            out.update(flat_state(net), losses={k: float(v) for k, v in
+                                                losses.items()},
+                       mask_t=mask)
+        opt.step()
+        sched.step()
+        normalize_obj_target(net)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            out["params"] = flat_state(net)["params"]
+    out.update(stats=((stats[0] + stats[1]) / 2).cpu().numpy(),
+               mask=out.pop("mask_t").cpu().numpy(), step_s=times,
+               sizes=[p.numel() for p in net.parameters()
+                      if p.grad is not None],
+               stat_sizes=[t.numel() for t in bn_running_stats(net)])
+    return out
+
+
+DP_SOLVER = dict(lr=4e-3, steps=(100,), warmup_iters=0)
+
+
+def split_rel(a, b, sizes) -> float:
+    """The largest ‖a − b‖₂ / ‖b‖₂ over the tensors of two flat vectors."""
+    import numpy as np
+
+    worst, off = 0.0, 0
+    for n in sizes:
+        x, y = a[off:off + n], b[off:off + n]
+        ref = float(np.linalg.norm(y))
+        diff = float(np.linalg.norm(x.astype(np.float64) - y))
+        worst = max(worst, diff / ref if ref else diff)
+        off += n
+    return worst
+
+
+def dp_train_check(name, rank0, ref) -> dict:
+    """The two ranks' first step against one process's (``dp_one_process``)
+    and against each other."""
+    import numpy as np
+
+    out = rank0[name]
+    res = {"losses": out["losses"], "one_process_losses": ref["losses"],
+           "ranks_equal": out["ranks_equal"], "launches": out["launches"],
+           "bit_equal": {k: bool(np.array_equal(out[k], ref[k]))
+                         for k in ("grads", "params", "stats")},
+           "grads_rel": split_rel(out["grads"], ref["grads"], ref["sizes"]),
+           "params_rel": split_rel(out["params"], ref["params"],
+                                   ref["sizes"]),
+           "stats_rel": split_rel(out["stats"], ref["stats"],
+                                  ref["stat_sizes"]),
+           "rank_step_s": out["step_s"], "first_rank_step_s":
+           out["first_step_s"], "one_process_step_s": ref["step_s"][1:],
+           "all_reduce_s": out["all_reduce_s"],
+           "all_reduce_calls": out["all_reduce_calls"],
+           "all_reduce_mb": out["all_reduce_mb"]}
+    bf16 = name == "bfloat16"
+    used = step_kernels(True, bf16)
+    losses_ok = all(math.isclose(out["losses"][k], ref["losses"][k],
+                                 rel_tol=DP_LOSS_RTOL)
+                    for k in ref["losses"])
+    res["ok"] = (losses_ok and all(out["ranks_equal"].values())
+                 and max(res["grads_rel"], res["params_rel"],
+                         res["stats_rel"]) <= DP_REL
+                 and out["launches"] == {n: 1 for n in used}
+                 and out["all_reduce_calls"] == 1)
+    if not res["ok"]:
+        raise AssertionError(f"the two-rank {name} step is wrong: {res}")
+    return res
+
+
+def dp_cli(out_dir: str) -> dict:
+    """(c) the train CLI under a launcher's environment at NCCL world size
+    1 with ``--ndev 1 --orbax``, phase 1 on the VOC fixture from
+    ``ref_model.pth``'s matching weights, then ``--resume`` from the
+    asynchronous checkpoint, then the eval CLI on it; (d) ``--ndev 2`` on
+    one card raises."""
+    import shutil
+
+    import torch
+
+    from ct_tpu_torch import test as eval_cli
+    from ct_tpu_torch.parallel.distributed import free_port
+    from ct_tpu_torch.train import cli as train_cli
+
+    save = os.path.join(out_dir, "train_cli_dp")
+    if os.path.exists(save):
+        shutil.rmtree(save)
+    flags = ["-p", "1", "--setting", "incre", "--split", "1", "--basenet",
+             REF_MODEL, "-b", "8", "--warmup-iter", "0", "--orbax",
+             "--checkpoint-period", "2", "--save-folder", save]
+    os.environ["VOC_ROOT"] = VOC_ROOT
+    res, rows = {}, []
+    launcher = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+    t0 = time.perf_counter()
+    try:
+        for iters, extra in zip(DP_CLI_ITERS, ([], ["--resume"])):
+            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                              MASTER_ADDR="localhost",
+                              MASTER_PORT=str(free_port()))
+            with Captured(os.path.join(out_dir, f"train_cli_dp_{iters}.txt")):
+                rows.append(train_cli.main(flags + extra + [
+                    "--ndev", "1", "--max-iter", str(iters)]))
+            if torch.distributed.is_initialized():
+                raise AssertionError("the train CLI did not leave its group")
+    finally:
+        for key in launcher:
+            os.environ.pop(key, None)
+    res["train_s"] = time.perf_counter() - t0
+    orbax = os.path.join(save, "orbax")
+    res["steps"] = sorted(os.listdir(orbax))
+    with open(os.path.join(save, "log.txt")) as f:
+        log = f.read()
+    res["iterations"] = [r["iteration"] for r in rows]
+    res["nccl"] = "Mesh: 1 rank(s) (nccl)" in log
+    res["resumed"] = (f"Starting training from iteration {DP_CLI_ITERS[0]}"
+                      in log)
+    os.environ["VOC_ROOT"] = mini_voc_root(
+        DP_EVAL_IMAGES, os.path.join(out_dir, "voc_dp"))
+    t0 = time.perf_counter()
+    try:
+        with Captured(os.path.join(out_dir, "train_cli_dp_eval.txt")):
+            scores = eval_cli.main(["-p", "1", "--setting", "incre",
+                                    "--split", "1", "--resume",
+                                    "--save-folder", orbax, "-b", "16"])
+    finally:
+        os.environ["VOC_ROOT"] = VOC_ROOT
+    res["eval_s"] = time.perf_counter() - t0
+    res["eval_mAP"] = scores["mAP"]
+    try:
+        train_cli.main(flags + ["--ndev", "2", "--max-iter", "1"])
+        res["ndev2"] = "did not raise"
+    except RuntimeError as e:
+        res["ndev2"] = str(e)
+    want_raise = (f"--ndev 2 needs 2 CUDA devices, but "
+                  f"{torch.cuda.device_count()} are visible")
+    res["ok"] = (res["iterations"] == [DP_CLI_ITERS[0] - 1,
+                                       DP_CLI_ITERS[1] - 1]
+                 and res["nccl"] and res["resumed"]
+                 and str(DP_CLI_ITERS[1]) in res["steps"]
+                 and all(math.isfinite(v) for r in rows for v in r.values())
+                 and 0 <= res["eval_mAP"] <= 1
+                 and (want_raise in res["ndev2"]
+                      or torch.cuda.device_count() >= 2))
+    if not res["ok"]:
+        raise AssertionError(f"the world-size-1 CLI run is wrong: {res}")
+    return res
+
+
+def phase_dp(seed: int, out_dir: str) -> dict:
+    """Data parallel on the one card, each part printing its own line:
+    (a) the train step of two gloo ranks against one process's accum-2
+    step, in f32 and bf16, (b) their eval against one process's, (c) the
+    CLIs at NCCL world size 1 with asynchronous checkpoints, (d) ``--ndev
+    2`` raising."""
+    import torch
+
+    os.makedirs(out_dir, exist_ok=True)
+    res = {}
+    for name, fn in (("ranks", lambda: dp_ranks(seed)),
+                     ("cli", lambda: dp_cli(out_dir))):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        res[name + "_s"] = time.perf_counter() - t0
+        emit({"part": "dp." + name, "seconds": res[name + "_s"],
+              **res[name]})
+        torch.cuda.empty_cache()
+    return res
+
+
+def dp_ranks(seed: int) -> dict:
+    """(a) and (b) of the dp phase: one launch of two ranks."""
+    import numpy as np
+    import torch
+
+    from ct_tpu_torch.config import VOC_300, resolve_task
+    from ct_tpu_torch.eval import run_inference
+    from ct_tpu_torch.data.voc import VOCTestSet
+    from ct_tpu_torch.models.convert import load_reference_pth
+    from ct_tpu_torch.models.rfbnet import build_net
+    from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.parallel.card_check import Subset
+    from ct_tpu_torch.parallel.distributed import launch
+
+    dev = torch.device("cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res = {}
+    try:
+        batch = dict(seeded_targets(seed, DP_BATCH),
+                     image=seeded_images(seed, DP_BATCH, 300))
+        on_card = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        refs = {str(dt).replace("torch.", ""): dp_one_process(on_card, dt)
+                for dt in (torch.float32, torch.bfloat16)}
+        res["one_process_s"] = time.perf_counter() - t0
+        spec = {"ref_model": REF_MODEL, "solver": DP_SOLVER,
+                "batch": {k: v.numpy() for k, v in batch.items()},
+                "masks": {k: r["mask"] for k, r in refs.items()},
+                "dtypes": [torch.float32, torch.bfloat16],
+                "timed_steps": DP_TIMED_STEPS, "voc_root": VOC_ROOT,
+                "eval_images": DP_EVAL_IMAGES, "eval_batch": DP_BATCH}
+        t0 = time.perf_counter()
+        rank0 = launch("ct_tpu_torch.parallel.card_check:rank_check", 2,
+                       (spec,), device="cuda", share_device=True,
+                       timeout=600)
+        res["ranks_s"] = time.perf_counter() - t0
+        res["backend"] = rank0["backend"]
+        for name in refs:
+            res["train_" + name] = dp_train_check(name, rank0, refs[name])
+
+        task = resolve_task(2, "incre", "ours", "VOC")
+        net = build_net(task, 300, device=dev)
+        net.load_state_dict(load_reference_pth(REF_MODEL))
+        net.eval()
+        dataset = Subset(VOCTestSet(os.path.abspath(VOC_ROOT), "2007",
+                                    "test", phase=2, setting="incre",
+                                    split=1), DP_EVAL_IMAGES)
+        # one process at the ranks' per-forward batch: the same shapes
+        one = run_inference(net, dataset, task, prior_boxes(VOC_300, dev),
+                            300, batch_size=DP_BATCH // 2)
+        two = rank0["eval"]["all_boxes"]
+        counts_equal = all(len(a) == len(b) for ca, cb in zip(one, two)
+                           for a, b in zip(ca, cb))
+        ev = {"counts_equal": counts_equal,
+              "detections": sum(len(a) for c in one for a in c),
+              "bit_equal": counts_equal and all(
+                  np.array_equal(a, b) for ca, cb in zip(one, two)
+                  for a, b in zip(ca, cb)),
+              "launches": rank0["eval"]["launches"],
+              "rank_s": rank0["eval"]["seconds"]}
+        within = counts_equal and all(
+            np.allclose(a[:, 4], b[:, 4], rtol=1e-4, atol=1e-5)
+            and np.allclose(a[:, :4], b[:, :4], rtol=1e-3, atol=0.5)
+            for ca, cb in zip(one, two) for a, b in zip(ca, cb) if len(a))
+        ev["ok"] = (within and ev["detections"] > 0
+                    and ev["launches"].get("ct_attention_cm", 0) > 0
+                    and ev["launches"].get("nms_mask", 0) > 0)
+        if not ev["ok"]:
+            raise AssertionError(f"the two-rank eval differs: {ev}")
+        res["eval"] = ev
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return res
+
+
 def card_vs_cpu(task, net, batch, priors) -> dict:
     """One loss-and-gradients call at batch 2 from the same state on the
     card and on the CPU. The card's gradients are taken over the anchors
@@ -3999,7 +4324,8 @@ def main(argv=None) -> int:
                      ("coco", lambda: phase_coco(PROFILE_DIR)),
                      ("bench", lambda: phase_bench(PROFILE_DIR)),
                      ("size512", lambda: phase_size512(args.seed,
-                                                       PROFILE_DIR))):
+                                                       PROFILE_DIR)),
+                     ("dp", lambda: phase_dp(args.seed, PROFILE_DIR))):
         t0 = time.perf_counter()
         results[name] = fn()
         emit({"phase": name, "seconds": time.perf_counter() - t0,

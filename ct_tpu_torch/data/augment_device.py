@@ -20,6 +20,13 @@ which runs the op from those parameters alone. The mixup weights
 (B values; ``torch.distributions.Beta`` takes no generator) and copied to
 the device without waiting for it.
 
+Data parallel: a rank holds only its block of the global batch, and the
+draws are seeded per batch, so a rank that drew for its own images alone
+would give its i-th image the crop of every other rank's i-th. The
+samplers therefore draw the global batch's parameters (``world`` times
+the block: a few numbers an image) and keep this ``rank``'s rows, so the
+ranks' blocks are augmented as one process augments the global batch.
+
 Layouts: images come in NCHW [B, 3, S, S] in any dtype (the loader ships
 uint8 canvases) and leave NCHW float32 [B, 3, out, out], mean-subtracted;
 boxes [B, M, 4] in percent point form, labels [B, M], valid [B, M].
@@ -174,10 +181,13 @@ def first_accepted_crop(mode: torch.Tensor, rois: torch.Tensor,
 
 
 def sample_crop(gen: torch.Generator, boxes: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
-    """Draw a mode and 16 candidate crops per image (the host's scale and
-    aspect ranges) and keep the first that passes: ROI [B, 4]."""
-    b, n = boxes.shape[0], NUM_CANDIDATES
+                valid: torch.Tensor, rows: slice = slice(None),
+                world: int = 1) -> torch.Tensor:
+    """Draw a mode and 16 candidate crops for each of ``world`` blocks of
+    images (the host's scale and aspect ranges), keep the ``rows`` of the
+    images of ``boxes`` and the first of their candidates that passes: ROI
+    [B, 4]."""
+    b, n = boxes.shape[0] * world, NUM_CANDIDATES
     mode = torch.randint(0, len(CROP_MIN_IOUS), (b,), generator=gen,
                          device=gen.device)
     scale = _rand(gen, (b, n), 0.3, 1.0)
@@ -189,7 +199,7 @@ def sample_crop(gen: torch.Generator, boxes: torch.Tensor,
     x1 = _rand(gen, (b, n)) * (1 - w)
     y1 = _rand(gen, (b, n)) * (1 - h)
     rois = torch.stack([x1, y1, x1 + w, y1 + h], -1)
-    return first_accepted_crop(mode, rois, boxes, valid)
+    return first_accepted_crop(mode[rows], rois[rows], boxes, valid)
 
 
 def sample_expand(gen: torch.Generator, b: int, prob: float):
@@ -211,14 +221,20 @@ def sample_expand(gen: torch.Generator, b: int, prob: float):
 
 
 def sample_augment(gen: torch.Generator, boxes: torch.Tensor,
-                   valid: torch.Tensor, expand_prob: float = 0.6):
+                   valid: torch.Tensor, expand_prob: float = 0.6,
+                   rank: int = 0, world: int = 1):
     """All of a batch's draws, in the JAX function's order: photometric,
-    crop, expand, flip."""
+    crop, expand, flip; drawn for ``world`` blocks of ``boxes``' size, the
+    ``rank``-th kept."""
     b = boxes.shape[0]
-    photo = sample_photometric(gen, b)
-    roi = sample_crop(gen, boxes, valid)
-    ws, hs, left, top = sample_expand(gen, b, expand_prob)
-    flip = _rand(gen, (b,)) < 0.5
+    rows = slice(rank * b, (rank + 1) * b)
+    drawn = sample_photometric(gen, b * world)
+    photo = Photometric(*(getattr(drawn, f.name)[rows]
+                          for f in dataclasses.fields(drawn)))
+    roi = sample_crop(gen, boxes, valid, rows, world)
+    ws, hs, left, top = (x[rows] for x in sample_expand(gen, b * world,
+                                                         expand_prob))
+    flip = (_rand(gen, (b * world,)) < 0.5)[rows]
     return photo, Geometry(roi, ws, hs, left, top, flip)
 
 
@@ -345,12 +361,15 @@ def augment_batch(gen: torch.Generator, images: torch.Tensor,
                   valid: torch.Tensor, out_size: int = 300,
                   expand_prob: float = 0.6,
                   means: Sequence[float] = RGB_MEANS,
-                  out_dtype: Optional[torch.dtype] = None
+                  out_dtype: Optional[torch.dtype] = None,
+                  rank: int = 0, world: int = 1
                   ) -> Dict[str, torch.Tensor]:
     """Draw from ``gen`` and augment: mean-subtracted images [B, 3, out,
     out], float32 or ``out_dtype`` (as ``augment_jax.augment_batch``'s),
-    and the transformed fixed-shape targets."""
-    photo, geom = sample_augment(gen, boxes, valid, expand_prob)
+    and the transformed fixed-shape targets; the batch is block ``rank``
+    of ``world`` of the global batch the draws are made for."""
+    photo, geom = sample_augment(gen, boxes, valid, expand_prob, rank,
+                                 world)
     return apply_augment(images, boxes, labels, valid, photo, geom,
                          out_size, means, out_dtype)
 

@@ -20,6 +20,12 @@ Samples are put back into sequence order before they are collated, so for
 one seed the batch stream depends on neither the number nor the kind of
 workers (given a dataset whose samples depend only on their index). The
 next batches are assembled while the device runs the current step.
+
+Data parallel (``rank`` of ``world`` ranks): every rank draws the same
+index stream from the shared seed, cuts it into global batches of
+``batch_size`` and decodes only its contiguous block of each,
+``batch_size / world`` samples. Over k batches the ranks' blocks, in rank
+order, are the single process's k batches.
 """
 
 from __future__ import annotations
@@ -97,12 +103,17 @@ class Loader:
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
                  max_objs: int = 100, seed: Optional[int] = None,
-                 workers: str = "thread"):
+                 workers: str = "thread", rank: int = 0, world: int = 1):
         if workers not in ("thread", "process"):
             raise ValueError(f"workers must be thread or process, got "
                              f"{workers!r}")
+        if batch_size % world or not 0 <= rank < world:
+            raise ValueError(f"a batch of {batch_size} does not divide over "
+                             f"{world} ranks (rank {rank})")
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.global_batch = batch_size
+        self.batch_size = batch_size // world     # this rank's block
+        self.rank = rank
         self.num_workers = max(1, num_workers)
         self.max_objs = max_objs
         self.seed = seed
@@ -182,10 +193,14 @@ class Loader:
         sampler = TrainingSampler(
             len(self.dataset),
             seed=None if self.seed is None else self.seed + self._generation)
-        for seq, idx in enumerate(sampler):
+        lo = self.rank * self.batch_size
+        seq = 0
+        for pos, idx in enumerate(sampler):
             if stop.is_set():
                 return
-            _put(index_q, (seq, idx), stop)
+            if lo <= pos % self.global_batch < lo + self.batch_size:
+                _put(index_q, (seq, idx), stop)
+                seq += 1
 
     def _work(self, stop, index_q, sample_q, errors) -> None:
         while not stop.is_set():

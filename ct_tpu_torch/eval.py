@@ -1,14 +1,18 @@
 """Batched inference: forward → softmax → decode → NMS → per-image cap.
 
 The port of ``make_eval_step`` (``ct_tpu/train/step.py``) and of
-``run_inference`` and ``run_inference_host_nms`` (``test.py``), on one
-device; the latter runs NMS on the host.
+``run_inference`` and ``run_inference_host_nms`` (``test.py``); the latter
+runs NMS on the host, in one process.
+
+``run_inference`` with a ``mesh`` of several ranks is ``test.py --ndev``'s
+sharded eval step: each rank decodes and runs its block of each padded
+batch, and the fixed-shape detections (boxes, scores, classes, valid) are
+gathered in rank order, from which rank 0 fills ``all_boxes``.
 """
 
 from __future__ import annotations
 
 import logging
-import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -19,6 +23,8 @@ from ct_tpu_torch.data.voc import eval_transform
 from ct_tpu_torch.models.rfbnet import RFBNet, eval_scores
 from ct_tpu_torch.ops.detection import decode_and_fuse, postprocess
 from ct_tpu_torch.ops.nms import Detections
+from ct_tpu_torch.parallel.mesh import Mesh, gather_blocks
+from ct_tpu_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
 
@@ -71,20 +77,24 @@ def make_decode_step(
     return step
 
 
-def _batches(dataset, img_dim: int, batch_size: int):
-    """(lo, hi, images [batch_size,S,S,3] float32, sizes [(h, w)] of the
-    real images) over ``dataset``; the final batch is padded to
-    ``batch_size`` by repeating its last image, so every step has the same
+def _batches(dataset, img_dim: int, batch_size: int,
+             rows: slice = slice(None)):
+    """(lo, hi, images [n,S,S,3] float32, sizes [(h, w)] × n) over
+    ``dataset``: the ``rows`` of each batch of ``batch_size``, the final
+    batch padded by repeating its last image, so every step has the same
     shape."""
     for lo in range(0, len(dataset), batch_size):
         hi = min(lo + batch_size, len(dataset))
-        images, sizes = [], []
-        for i in range(lo, hi):
-            img = dataset.pull_image(i)
-            sizes.append((img.shape[0], img.shape[1]))
-            images.append(eval_transform(img, img_dim, RGB_MEANS))
-        images.extend([images[-1]] * (batch_size - (hi - lo)))
-        yield lo, hi, np.stack(images), sizes
+        index = list(range(lo, hi)) + [hi - 1] * (batch_size - (hi - lo))
+        pulled = {}
+        for i in index[rows]:
+            if i not in pulled:
+                img = dataset.pull_image(i)
+                pulled[i] = ((img.shape[0], img.shape[1]),
+                             eval_transform(img, img_dim, RGB_MEANS))
+        sizes = [pulled[i][0] for i in index[rows]]
+        images = np.stack([pulled[i][1] for i in index[rows]])
+        yield lo, hi, images, sizes
 
 
 def _nchw(images: np.ndarray, device) -> torch.Tensor:
@@ -94,23 +104,35 @@ def _nchw(images: np.ndarray, device) -> torch.Tensor:
 
 def run_inference(net: RFBNet, dataset, task: TaskSpec,
                   priors_cs: torch.Tensor, img_dim: int,
-                  batch_size: int = 32, **step_options) -> List[list]:
+                  batch_size: int = 32, mesh: Optional[Mesh] = None,
+                  **step_options) -> Optional[List[list]]:
     """Batched inference over ``dataset`` → the reference's ``all_boxes``:
     all_boxes[class][image] = float32 [n, 5] (x1, y1, x2, y2, score) in
-    pixels. ``step_options`` go to ``make_eval_step``."""
+    pixels. ``step_options`` go to ``make_eval_step``. Under a ``mesh`` of
+    several ranks each runs its block of every batch (``batch_size`` must
+    divide over them), and only rank 0 returns ``all_boxes`` (the others
+    None)."""
     device = priors_cs.device
+    sharded = mesh is not None and mesh.distributed
+    rows = mesh.block(batch_size) if sharded else slice(None)
+    primary = not sharded or mesh.is_primary
     eval_step = make_eval_step(net, priors_cs, **step_options)
     num_images = len(dataset)
     num_classes = task.num_classes
     all_boxes = [[[] for _ in range(num_images)] for _ in range(num_classes)]
+    timer = Timer()
 
-    for lo, hi, images, sizes in _batches(dataset, img_dim, batch_size):
-        t0 = time.perf_counter()
-        sizes += [sizes[-1]] * (batch_size - (hi - lo))
+    for lo, hi, images, sizes in _batches(dataset, img_dim, batch_size,
+                                          rows):
+        timer.tic()
         dets = eval_step(_nchw(images, device),
                          torch.tensor(sizes, device=device))
+        if sharded:
+            dets = Detections(*(gather_blocks(mesh, t) for t in dets))
         dets = Detections(*(t.cpu().numpy() for t in dets))
-        detect_time = time.perf_counter() - t0
+        detect_time = timer.toc(average=False)
+        if not primary:
+            continue
 
         for bi, i in enumerate(range(lo, hi)):
             valid = dets.valid[bi]
@@ -124,7 +146,7 @@ def run_inference(net: RFBNet, dataset, task: TaskSpec,
         if (lo // batch_size) % 5 == 0:
             logger.info("im_detect: %d/%d batch=%d %.3fs", hi, num_images,
                         hi - lo, detect_time)
-    return all_boxes
+    return all_boxes if primary else None
 
 
 def run_inference_host_nms(net: RFBNet, dataset, task: TaskSpec,

@@ -26,8 +26,21 @@ by the 12 COCO numbers and the AP of each class, and calibrates int8 on
 ``split_nonvoc_train2014``. Writes
 ``<save-folder>/inference/detections.pkl``, the scores as ``eval.json``
 and the inference rate through the dataset layer as ``speed.json``;
-``--retest`` re-scores the cached detections. Flags of what the port does
-not run yet raise and name the ROADMAP item that will port it.
+``--retest`` re-scores the cached detections. ``--pallas-ct`` raises:
+the port always runs its own CT kernels.
+
+Data parallel, one process a card, as for the train CLI: ``--ndev N`` > 1
+starts N workers (NCCL on the cards, one each; gloo on the CPU), and
+under a launcher's environment (``torchrun``) the CLI joins that group.
+``-b`` is the global batch and must divide by N. Each rank decodes and
+runs its block of every padded batch; the detections are gathered to
+rank 0, which writes ``detections.pkl``, ``speed.json`` and the scores
+(the other ranks return an empty dict). ``--int8`` calibrates on the same
+images on every rank and then broadcasts rank 0's folded, quantized model,
+so every rank holds its scales. ``--host-nms`` runs in one process, as
+``test.py`` returns before it builds its mesh. ``--resume`` also reads
+the train CLI's asynchronous checkpoints: ``--save-folder
+<folder>/orbax`` names their step directory in its tag.
 """
 
 from __future__ import annotations
@@ -44,10 +57,8 @@ import numpy as np
 
 logger = logging.getLogger("ct_tpu_torch.test")
 
-# flag → (is it set?, the ROADMAP item that will port it)
+# flag → (is it set?, why the port does not run it)
 UNPORTED = (
-    ("--ndev > 1", lambda a: a.ndev > 1,
-     "Queue 1 item 8 (data-parallel eval)"),
     ("--pallas-ct", lambda a: a.pallas_ct is not None,
      "none: the port always runs its CT kernels on the card"),
 )
@@ -101,10 +112,12 @@ def parse_args(argv=None):
                              "(the reference's CPU-NMS eval)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu.")
-    # flags of test.py that the port does not run: each raises
+    parser.add_argument("--ndev", type=int, default=1,
+                        help="Data-parallel ranks, one a card (0 = every "
+                             "visible card)")
+    # a flag of test.py that the port does not run: it raises
     parser.add_argument("--pallas-ct", choices=["auto", "on", "off"],
                         default=None)
-    parser.add_argument("--ndev", type=int, default=1)
     return parser.parse_args(argv)
 
 
@@ -172,6 +185,16 @@ def serving_model(net, images, int8_heads: bool = False):
     return folded, quant
 
 
+def quant_tensors(net) -> list:
+    """The int8 scales and kernels that ``quantize`` put on ``net``'s
+    convs."""
+    from ct_tpu_torch.models.quantize import convs
+
+    return [t for _, conv in convs(net)
+            for t in (conv.act_scale, conv.kernel_int8, conv.kernel_scale,
+                      conv.out_scale) if t is not None]
+
+
 def eval_set(args):
     """The test set of ``args.dataset``: VOC 2007 test, or COCO's
     ``split_nonvoc_minival2014``."""
@@ -189,11 +212,34 @@ def eval_set(args):
 
 
 def main(argv=None) -> dict:
+    """Evaluate; returns the scores (rank 0's where it spawned the
+    data-parallel workers, an empty dict on the other ranks)."""
+    from ct_tpu_torch.parallel import distributed
     from ct_tpu_torch.train.cli import check_ported
+    from ct_tpu_torch.utils.logger import close_logger, setup_logger
 
     args = parse_args(argv)
     check_ported(args, UNPORTED)
+    # --host-nms and --retest run in one process (rank 0 of a group)
+    entry = distributed.cli_entry(
+        args.ndev, args.device, "ct_tpu_torch.test:main",
+        sys.argv[1:] if argv is None else argv, args.batch_size,
+        spawn=not (args.host_nms or args.retest))
+    if entry.launched:
+        return entry.result
+    save_folder = os.path.join(args.save_folder, "inference")
+    os.makedirs(save_folder, exist_ok=True)
+    setup_logger(save_folder)
+    try:
+        return evaluate(args)
+    finally:
+        close_logger()
+        distributed.leave(entry)
 
+
+def evaluate(args) -> dict:
+    """The eval run of ``main`` in this process (one rank of a group,
+    where one is initialised)."""
     import torch
 
     from ct_tpu_torch import resolve_device
@@ -202,11 +248,14 @@ def main(argv=None) -> dict:
     from ct_tpu_torch.models.convert import load_reference_pth
     from ct_tpu_torch.models.rfbnet import build_net
     from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.parallel.distributed import rank_device
+    from ct_tpu_torch.parallel.mesh import make_mesh, replicate
+    from ct_tpu_torch.train.async_ckpt import checkpoint_file
     from ct_tpu_torch.train.checkpointer import Checkpointer
 
-    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
-                        format="%(asctime)s %(name)s: %(message)s")
-
+    if ((args.host_nms or args.retest) and torch.distributed.is_initialized()
+            and torch.distributed.get_rank() != 0):
+        return {}
     path = None
     if not args.retest:
         ck = Checkpointer(args.save_folder)
@@ -215,8 +264,8 @@ def main(argv=None) -> dict:
         if path is None:
             raise SystemExit("--load-file is required unless --retest, or "
                              "--resume with a checkpoint in --save-folder")
+        path = checkpoint_file(path)
     save_folder = os.path.join(args.save_folder, "inference")
-    os.makedirs(save_folder, exist_ok=True)
     img_dim = 512 if args.size == "512" else 300
     task = resolve_task(args.phase, args.setting, args.method, args.dataset)
     dataset = eval_set(args)
@@ -229,6 +278,9 @@ def main(argv=None) -> dict:
     else:
         logger.info("Loading weights from %s", path)
         device = resolve_device(args.device)
+        if torch.distributed.is_initialized():
+            device = rank_device(device)
+        mesh = make_mesh(device=device)
         if device.type == "cuda":
             # float32 products in float32, and bf16 ones summed in float32
             # (preferred_element_type=float32 in the JAX package), as the
@@ -244,6 +296,9 @@ def main(argv=None) -> dict:
             images = calibration_images(args, img_dim, args.calib_images)
             net, _ = serving_model(net, torch.from_numpy(images),
                                    int8_heads=args.int8_heads)
+            # every rank calibrated on the same images; rank 0's scales
+            # are the ones all of them serve with
+            replicate(mesh, net, quant_tensors(net))
         priors = prior_boxes(get_config(args.dataset, img_dim), device)
         t0 = time.perf_counter()
         if args.host_nms:
@@ -251,16 +306,18 @@ def main(argv=None) -> dict:
                                                img_dim, args.batch_size)
         else:
             all_boxes = run_inference(net, dataset, task, priors, img_dim,
-                                      batch_size=args.batch_size,
+                                      batch_size=args.batch_size, mesh=mesh,
                                       top_k=args.top_k,
                                       approx_top_k=args.approx_topk == "on",
                                       pool_size=args.pool_size)
         seconds = time.perf_counter() - t0
+        if not mesh.is_primary:
+            return {}
         speed = {"images": len(dataset), "seconds": seconds,
                  "images_per_s": len(dataset) / seconds,
                  "batch_size": args.batch_size, "device": str(device),
-                 "int8": args.int8, "bf16": args.bf16,
-                 "host_nms": args.host_nms}
+                 "ranks": mesh.world_size, "int8": args.int8,
+                 "bf16": args.bf16, "host_nms": args.host_nms}
         if device.type == "cuda":
             speed["device_name"] = torch.cuda.get_device_name(device)
         logger.info("inference: %(images)d images in %(seconds).1f s, "

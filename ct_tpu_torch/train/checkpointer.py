@@ -18,6 +18,9 @@ Both ``--fused-opt`` flavours write ``torch.optim.SGD``'s state, told apart
 by its groups' ``fused`` entry: a resume whose checkpoint was written by the
 other flavour warns and goes on with that flavour, momentum and schedule
 carried over, as ``train.py`` does.
+
+Under a data-parallel process group rank 0 writes, and the other ranks
+wait at a barrier until the file is on disk; every rank reads.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import os
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
@@ -91,6 +95,14 @@ class Checkpointer:
     def save(self, name: str, model: torch.nn.Module,
              optimizer: Optional[torch.optim.Optimizer] = None,
              scheduler=None, iteration: int = 0) -> str:
+        path = os.path.join(self.save_dir, f"{name}.pth")
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self._write(path, model, optimizer, scheduler, iteration)
+        if dist.is_initialized():
+            dist.barrier()
+        return path
+
+    def _write(self, path, model, optimizer, scheduler, iteration) -> None:
         payload = {"model": {k: v.detach().cpu()
                              for k, v in model.state_dict().items()},
                    "iteration": int(iteration)}
@@ -98,14 +110,12 @@ class Checkpointer:
             payload["optimizer"] = optimizer.state_dict()
         if scheduler is not None:
             payload["scheduler"] = scheduler.state_dict()
-        path = os.path.join(self.save_dir, f"{name}.pth")
         tmp = path + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
         with open(self._tag_path(), "w") as f:
             f.write(os.path.basename(path))
         logger.info("Saved checkpoint to %s", path)
-        return path
 
     def has_checkpoint(self) -> bool:
         return os.path.exists(self._tag_path())

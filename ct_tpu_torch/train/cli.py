@@ -9,6 +9,35 @@
     python -m ct_tpu_torch.train -d COCO -p 1 --setting transfer \\
         --save-folder weights/ [--worker-type process]
 
+Data parallel, one process a card, in either of two launch forms:
+
+    python -m ct_tpu_torch.train --ndev 4 -b 64 ...     # spawns 4 workers
+    torchrun --nproc-per-node 4 -m ct_tpu_torch.train -b 64 ...
+
+``--ndev N`` > 1 starts N workers on a free localhost port; ``--ndev 0``
+(the default) takes every visible card, and one card (or the CPU) is the
+single-process path with no group. Under a launcher's environment
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``) the CLI joins that group, at world size 1 too, and
+``--ndev`` must be 0 or ``WORLD_SIZE``. The backend is NCCL on the cards
+(one rank a card: ``--ndev`` above the visible cards raises) and gloo on
+the CPU. ``-b`` is the global batch, which must divide over the ranks
+(and their ``--accum-steps``). Each rank decodes its block of each
+global batch from the shared sampler, the train step sums the
+unnormalised gradients, loss sums and N over the ranks and divides by the
+global N, and rank 0 writes the checkpoints, metrics, logs to the console
+and traces ``--profile-dir``; rank N > 0 logs to ``log.txt.rank{N}``.
+The device augmentation draws the global batch's parameters and applies
+each rank's rows, so it equals the single process's; batch-level mixup,
+though, pairs only within a rank's block (JAX's pairs across the global
+batch), from a stream seeded with the rank folded in.
+
+``--orbax``: asynchronous checkpoints (``train/async_ckpt.py``): each
+save is a host snapshot written in the background to
+``<save-folder>/orbax/<iteration + 1>/checkpoint.pth``; ``--resume`` in
+phase 1 resumes from the newest, and the eval CLI loads it with
+``--load-file`` or ``--resume --save-folder <save-folder>/orbax``.
+
 The same phase/setting/method state machine and loop as ``train.py``: the
 training set of the few-shot protocol, weights loaded from ``--basenet``
 (phase 1) or ``--load-file`` (phase 2, weights only) or resumed from the
@@ -71,13 +100,10 @@ import numpy as np
 
 logger = logging.getLogger("ct_tpu_torch.train")
 
-# flag → (is it set?, the ROADMAP item that will port it)
+# flag → (is it set?, why the port does not run it)
 UNPORTED = (
-    ("--orbax", lambda a: a.orbax, "Queue 1 item 8 (async checkpoints)"),
     ("--pallas-ct", lambda a: a.pallas_ct is not None,
      "none: the port always runs its CT kernels on the card"),
-    ("--ndev > 1", lambda a: a.ndev > 1,
-     "Queue 1 item 8 (data-parallel training)"),
 )
 
 
@@ -109,7 +135,8 @@ def parse_args(argv=None):
                         default=[120000, 150000])
     parser.add_argument("--warmup-iter", type=int, default=5000)
     parser.add_argument("--ndev", type=int, default=0,
-                        help="Devices (one card only in the port)")
+                        help="Data-parallel ranks, one a card (0 = every "
+                             "visible card)")
     parser.add_argument("--num-workers", type=int, default=4,
                         help="Host data-pipeline workers")
     parser.add_argument("--worker-type", default="thread",
@@ -150,16 +177,18 @@ def parse_args(argv=None):
     parser.add_argument("--accum-steps", type=int, default=1,
                         help="Gradient accumulation: micro-batches per "
                              "step (BatchNorm statistics per micro-batch)")
-    # flags of train.py that the port does not run yet: each raises
+    parser.add_argument("--orbax", action="store_true",
+                        help="Asynchronous checkpoints under "
+                             "<save-folder>/orbax")
+    # a flag of train.py that the port does not run: it raises
     parser.add_argument("--pallas-ct", choices=["auto", "on", "off"],
                         default=None)
-    parser.add_argument("--orbax", action="store_true")
     return parser.parse_args(argv)
 
 
 def check_ported(args, unported=UNPORTED) -> None:
     """Raise on the first flag of ``unported`` that ``args`` sets, naming
-    the ROADMAP item that will port it."""
+    why the port does not run it."""
     for flag, is_set, item in unported:
         if is_set(args):
             raise SystemExit(f"{flag} is not ported to ct_tpu_torch yet "
@@ -212,18 +241,32 @@ def is_write_point(iteration: int, start_iter: int, max_iter: int) -> bool:
 
 
 def device_augmented(gen, seed: int, batch, out_size: int,
-                     out_dtype=None) -> dict:
+                     out_dtype=None, mesh=None) -> dict:
     """A batch on the device, augmented there from ``gen`` seeded with
     ``seed`` (images in ``out_dtype``, the model's compute type as
     train.py's ``out_dtype``; float32 by default), its weights carried
-    over."""
+    over. Under ``mesh`` the batch is this rank's block, augmented by its
+    rows of the global batch's draws."""
     from ct_tpu_torch.data.augment_device import augment_batch
 
     gen.manual_seed(seed)
+    rank, world = (mesh.rank, mesh.world_size) if mesh else (0, 1)
     return dict(augment_batch(gen, batch["image"], batch["boxes"],
                               batch["labels"], batch["valid"],
-                              out_size=out_size, out_dtype=out_dtype),
+                              out_size=out_size, out_dtype=out_dtype,
+                              rank=rank, world=world),
                 weights=batch["weights"])
+
+
+def mixup_rng(iteration: int, mesh=None) -> np.random.Generator:
+    """The generator of one iteration's batch-level mixup. Under a mesh of
+    several ranks the rank is folded into the seed of ranks other than 0:
+    a rank pairs only within its block, and ranks with one seed would pair
+    their blocks alike."""
+    seed = seed_of(MIXUP_STREAM, iteration)
+    if mesh is not None and mesh.rank > 0:
+        return np.random.default_rng([seed, mesh.rank])
+    return np.random.default_rng(seed)
 
 
 class AugmentedBatches:
@@ -232,13 +275,15 @@ class AugmentedBatches:
     stream of their own, never mixed (the reference initialises before it
     turns mixup on)."""
 
-    def __init__(self, loader, device, out_size: int, out_dtype=None):
+    def __init__(self, loader, device, out_size: int, out_dtype=None,
+                 mesh=None):
         import torch
 
         self.loader = loader
         self.device = device
         self.out_size = out_size
         self.out_dtype = out_dtype
+        self.mesh = mesh
         self.gen = torch.Generator(device=device)
         self.i = 0
 
@@ -248,16 +293,51 @@ class AugmentedBatches:
         self.i += 1
         return device_augmented(self.gen, seed_of(REWEIGHT_STREAM, self.i),
                                 batch_to(self.loader.next(), self.device),
-                                self.out_size, self.out_dtype)
+                                self.out_size, self.out_dtype, self.mesh)
+
+
+def load_or_resume(args, ck, async_ck, model, optimizer, scheduler) -> int:
+    """train.py's dispatch: with ``--orbax``, ``--resume`` and an
+    asynchronous checkpoint, phase 1 resumes from the newest (model,
+    optimizer, schedule); otherwise ``Checkpointer.resume_or_load`` of the
+    basenet (phase 1) or ``--load-file`` (phase 2). Returns the iteration
+    the state ended at, -1 for a fresh start."""
+    if (async_ck is not None and args.resume and async_ck.has_checkpoint()
+            and args.phase == 1):
+        return async_ck.resume(model, optimizer, scheduler)
+    return ck.resume_or_load(
+        args.basenet if args.phase == 1 else args.load_file, model,
+        optimizer, scheduler, resume=args.resume,
+        load_optimizer=args.phase == 1)
 
 
 def main(argv=None) -> dict:
-    """Train; returns the last iteration's losses and lr."""
+    """Train; returns the last iteration's losses and lr (rank 0's where
+    it spawned the data-parallel workers)."""
+    from ct_tpu_torch.parallel import distributed
+    from ct_tpu_torch.utils.logger import close_logger, setup_logger
+
     args = parse_args(argv)
     check_ported(args)
     if args.accum_steps > 1 and args.batch_size % args.accum_steps:
         raise SystemExit("--batch-size must divide by --accum-steps")
+    entry = distributed.cli_entry(
+        args.ndev, args.device, "ct_tpu_torch.train.cli:main",
+        sys.argv[1:] if argv is None else argv, args.batch_size)
+    if entry.launched:
+        return entry.result
+    os.makedirs(args.save_folder, exist_ok=True)
+    setup_logger(args.save_folder)
+    try:
+        return train(args)
+    finally:
+        close_logger()
+        distributed.leave(entry)
 
+
+def train(args) -> dict:
+    """The training run of ``main`` in this process (one rank of a group,
+    where one is initialised)."""
     import torch
 
     from ct_tpu_torch import resolve_device
@@ -269,6 +349,9 @@ def main(argv=None) -> dict:
     from ct_tpu_torch.data.loader import Loader
     from ct_tpu_torch.models.rfbnet import build_net
     from ct_tpu_torch.ops.priors import prior_boxes
+    from ct_tpu_torch.parallel.distributed import rank_device
+    from ct_tpu_torch.parallel.mesh import make_mesh, replicate
+    from ct_tpu_torch.train.async_ckpt import AsyncCheckpointer
     from ct_tpu_torch.train.checkpointer import (
         Checkpointer, PeriodicCheckpointer,
     )
@@ -284,15 +367,17 @@ def main(argv=None) -> dict:
     )
     from ct_tpu_torch.utils.profiler import StepTimer, annotate, trace
 
-    os.makedirs(args.save_folder, exist_ok=True)
-    logging.basicConfig(
-        level=logging.INFO, format="%(asctime)s %(name)s: %(message)s",
-        handlers=[logging.StreamHandler(sys.stdout),
-                  logging.FileHandler(os.path.join(args.save_folder,
-                                                   "log.txt"))],
-        force=True)
-
     device = resolve_device(args.device)
+    if torch.distributed.is_initialized():
+        device = rank_device(device)
+    mesh = make_mesh(device=device)
+    if args.batch_size // mesh.world_size % args.accum_steps:
+        raise SystemExit(f"--batch-size {args.batch_size} must divide over "
+                         f"{mesh.world_size} ranks of --accum-steps "
+                         f"{args.accum_steps} micro-batches")
+    logger.info("Mesh: %d rank(s) (%s), this one %d on %s", mesh.world_size,
+                torch.distributed.get_backend() if mesh.group else "no group",
+                mesh.rank, device)
     if device.type == "cuda":
         # float32 products in float32, and bf16 ones summed in float32
         # (preferred_element_type=float32 in the JAX package)
@@ -324,21 +409,23 @@ def main(argv=None) -> dict:
     optimizer, scheduler = build_optimizer(model, task, solver_cfg,
                                            fused=args.fused_opt == "on")
     ck = Checkpointer(args.save_folder)
-    last = ck.resume_or_load(
-        args.basenet if args.phase == 1 else args.load_file, model,
-        optimizer, scheduler, resume=args.resume,
-        load_optimizer=args.phase == 1)
+    async_ck = (AsyncCheckpointer(os.path.join(args.save_folder, "orbax"))
+                if args.orbax else None)
+    last = load_or_resume(args, ck, async_ck, model, optimizer, scheduler)
+    replicate(mesh, model)
     start_iter = last + 1
     state = TrainState(model, optimizer, scheduler, start_iter)
     step_fn = make_train_step(priors, OVERLAP_THRESHOLD,
-                              accum_steps=args.accum_steps)
-    periodic = PeriodicCheckpointer(ck, args.checkpoint_period, args.max_iter)
+                              accum_steps=args.accum_steps, mesh=mesh)
+    periodic = PeriodicCheckpointer(async_ck or ck, args.checkpoint_period,
+                                    args.max_iter)
 
     loader = Loader(dataset, args.batch_size, num_workers=args.num_workers,
-                    max_objs=args.max_objs, seed=0, workers=args.worker_type)
+                    max_objs=args.max_objs, seed=0, workers=args.worker_type,
+                    rank=mesh.rank, world=mesh.world_size)
     writers = [CommonMetricPrinter(args.max_iter),
                JSONWriter(os.path.join(args.save_folder, "metrics.json")),
-               TensorboardWriter(args.save_folder)]
+               TensorboardWriter(args.save_folder)] if mesh.is_primary else []
     storage = EventStorage(start_iter)
     timer = StepTimer()
     aug_gen = torch.Generator(device=device)
@@ -366,9 +453,11 @@ def main(argv=None) -> dict:
 
     try:
         if task.has_ct_head:
-            rw_loader = (AugmentedBatches(loader, device, img_dim, dtype)
+            rw_loader = (AugmentedBatches(loader, device, img_dim, dtype,
+                                          mesh)
                          if args.device_augment else loader)
-            init_reweight(model, rw_loader, priors, task, args.init_iter)
+            init_reweight(model, rw_loader, priors, task, args.init_iter,
+                          mesh=mesh)
             if args.mixup and args.device_augment:
                 device_mixup = True   # batch-level, after the augmentation
             elif args.mixup:
@@ -378,7 +467,7 @@ def main(argv=None) -> dict:
         logger.info("Starting training from iteration %d", start_iter)
         for iteration in range(start_iter, args.max_iter):
             storage.step()
-            if args.profile_dir is not None:
+            if args.profile_dir is not None and mesh.is_primary:
                 if iteration == start_iter + 10:
                     profiler_ctx = trace(args.profile_dir)
                     profiler_ctx.__enter__()
@@ -403,12 +492,10 @@ def main(argv=None) -> dict:
                 with annotate("augment"):
                     batch = device_augmented(
                         aug_gen, seed_of(AUGMENT_STREAM, iteration), batch,
-                        img_dim, dtype)
+                        img_dim, dtype, mesh)
                     if device_mixup:
-                        batch = mixup_batch(
-                            np.random.default_rng(
-                                seed_of(MIXUP_STREAM, iteration)),
-                            batch, zero_ignored=zero_ignored)
+                        batch = mixup_batch(mixup_rng(iteration, mesh),
+                                            batch, zero_ignored=zero_ignored)
             with annotate("step"):
                 losses = step_fn(state, batch)
             pending.append((iteration,
@@ -426,6 +513,8 @@ def main(argv=None) -> dict:
     finally:
         if profiler_ctx is not None:
             profiler_ctx.__exit__(None, None, None)
+        if async_ck is not None:
+            async_ck.wait()   # drain the save in flight before exiting
         loader.stop()
         for w in writers[1:]:
             w.close()

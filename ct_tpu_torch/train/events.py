@@ -6,7 +6,9 @@ scalars report the median of their last 20 values), and the train loop
 hands it to three writers: ``CommonMetricPrinter`` (a log line with ETA,
 smoothed losses, lr, iteration time and the card's peak memory),
 ``JSONWriter`` (one line of ``metrics.json`` per write) and
-``TensorboardWriter`` (a no-op where the library is missing).
+``TensorboardWriter`` (a no-op where the library is missing). Under a
+data-parallel group the train CLI builds the writers on rank 0 only: the
+losses it stores are the global batch's, equal on every rank.
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """The train step: forward → matching → loss → backward → SGD → renorm.
 
 The port of ``ct_tpu/train/step.py`` (``TrainState``,
-``normalize_obj_target``, ``make_train_step`` with ``mesh=None``). One
-step:
+``normalize_obj_target``, ``make_train_step``). One step:
 
   1. the forward in train mode (BatchNorm on batch statistics, running
      statistics updated at momentum 0.01);
@@ -23,6 +22,20 @@ and loss sum is divided once by the whole batch's N. Only a batch whose
 micro-batches are equal gives the single-batch step's result: BatchNorm
 sees B / accum_steps images.
 
+With a ``mesh`` of several ranks (``parallel/mesh.py``; JAX's
+``shard_map`` step, ``step_body`` with an axis name) each rank runs steps
+1–3 on its block of the global batch, in its ``accum_steps``
+micro-batches, and leaves the gradients and loss sums unnormalised. Then
+one all-reduce sums the gradients, the loss sums and N over the ranks
+(JAX's three ``psum``) and averages BatchNorm's running statistics (JAX's
+``pmean``): they travel in one flat float32 buffer, so the step makes one
+collective. Only then is everything divided by max(N, 1). BatchNorm
+normalises by each rank's statistics, as under the reference's
+``DataParallel``; ``num_batches_tracked`` is equal on every rank and stays
+unreduced. The model is not wrapped in ``DistributedDataParallel``, which
+divides the gradients by the number of ranks instead of by N and
+broadcasts rank 0's BatchNorm buffers instead of averaging them.
+
 ``loss_and_grads`` is steps 1–4 alone: it leaves the gradients on the
 parameters and returns the N-normalised losses. It can be handed the
 anchors to count instead of mining them, so that two devices can be held
@@ -40,6 +53,9 @@ from ct_tpu_torch.data.loader import to_device
 from ct_tpu_torch.models.rfbnet import RFBNet
 from ct_tpu_torch.ops.losses import loss_mask, masked_loss_sums
 from ct_tpu_torch.ops.matching import match_batch
+from ct_tpu_torch.parallel.mesh import (
+    Mesh, all_reduce_flat, bn_running_stats,
+)
 
 LOSS_KEYS = ("loss_box_reg", "loss_cls", "loss_obj")
 
@@ -76,12 +92,13 @@ def batch_to(batch: Mapping, device) -> Dict[str, torch.Tensor]:
 def loss_and_grads(model: RFBNet, batch: Mapping[str, torch.Tensor],
                    priors_cs: torch.Tensor, match_threshold: float = 0.5,
                    mask: Optional[torch.Tensor] = None,
-                   accum_steps: int = 1):
+                   accum_steps: int = 1, mesh: Optional[Mesh] = None):
     """Steps 1–4: the gradients of the N-normalised total loss land in each
-    parameter's ``.grad``, over ``accum_steps`` micro-batches. Returns (the
-    normalised losses and N as detached scalars, the [B, P] mask of the
-    anchors counted: positives and mined hard negatives, or ``mask`` where
-    given)."""
+    parameter's ``.grad``, over ``accum_steps`` micro-batches of this
+    rank's ``batch``, summed over the ranks of ``mesh`` and divided by the
+    global N. Returns (the normalised losses and the global N as detached
+    scalars, the [B, P] mask of the anchors this rank counted: positives
+    and mined hard negatives, or ``mask`` where given)."""
     b = batch["image"].shape[0]
     if b % accum_steps:
         raise ValueError(f"batch {b} does not divide by accum_steps "
@@ -104,6 +121,8 @@ def loss_and_grads(model: RFBNet, batch: Mapping[str, torch.Tensor],
         totals = {k: totals[k] + sums[k].detach() for k in LOSS_KEYS}
         n = n + num_pos.sum().detach()
         masks.append(counted)
+    if mesh is not None and mesh.distributed:
+        totals, n = reduce_over_ranks(model, totals, n, mesh)
     n = torch.clamp(n, min=1.0)
     for p in model.parameters():
         if p.grad is not None:
@@ -114,15 +133,35 @@ def loss_and_grads(model: RFBNet, batch: Mapping[str, torch.Tensor],
     return losses, torch.cat(masks)
 
 
+@torch.no_grad()
+def reduce_over_ranks(model: RFBNet, totals: Dict[str, torch.Tensor],
+                      n: torch.Tensor, mesh: Mesh):
+    """The ranks' unnormalised gradients, loss sums and N summed, and
+    BatchNorm's running statistics averaged, in place and in one
+    all-reduce of one float32 buffer; returns the summed (totals, N)."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    stats = bn_running_stats(model)
+    scalars = torch.stack([totals[k] for k in LOSS_KEYS] + [n]).float()
+    for t in grads + stats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the step reduces float32 tensors, got "
+                            f"{t.dtype}")
+    all_reduce_flat(mesh, grads + stats + [scalars])
+    for t in stats:
+        t.div_(mesh.world_size)
+    return dict(zip(LOSS_KEYS, scalars[:3])), scalars[3]
+
+
 def make_train_step(priors_cs: torch.Tensor, match_threshold: float = 0.5,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, mesh: Optional[Mesh] = None):
     """The train step: ``step(state, batch) → losses`` updates ``state`` in
-    place (model, optimizer, schedule, ``state.step``), the batch taken in
-    ``accum_steps`` micro-batches."""
+    place (model, optimizer, schedule, ``state.step``), the batch (this
+    rank's block under ``mesh``) taken in ``accum_steps`` micro-batches."""
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         losses, _ = loss_and_grads(state.model, batch, priors_cs,
-                                   match_threshold, accum_steps=accum_steps)
+                                   match_threshold, accum_steps=accum_steps,
+                                   mesh=mesh)
         state.optimizer.step()
         state.scheduler.step()
         if state.model.task.has_ct_head:
