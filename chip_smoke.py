@@ -245,7 +245,24 @@ Runs in phases, each printing one JSON line with its wall-clock seconds:
            CLI on its asynchronous checkpoint over 32 test images; (d)
            ``--ndev 2`` on the one card raises, naming both counts. The
            CLIs' output goes to build/chip_smoke/train_cli_dp_*.txt.
-13. kernels one line listing every kernel of the port with its launches
+13. real_parity the transfer chain of ``ct_tpu_torch/scripts/
+           real_parity.py``: ``build3``'s trees at full size (1,800 COCO-60
+           and 2×600 VOC images, 128 test images) into
+           build/chip_smoke/real_parity; the VOC half's XML and lists byte
+           for byte against ``.parity_p2/voc`` (``test.txt`` its first 128
+           lines), its JPEGs byte for byte or, decoded, within 8 levels;
+           the VOC evaluator on JAX's transfer detections
+           (``.parity_tr/ours_eval``) to every number of its record
+           within 1e-12; then the chain at full width in bf16, batch 64:
+           phase 1 (COCO-60) for 30 iterations, its COCO eval, phase 2
+           (transfer, 5-shot, ``--init-iter 5 --no-mixup-iter 5``) for 20,
+           its VOC eval, each with its losses, images/s and its kernels'
+           launches a step (rows 7 bf16 in phase 1; 2, 3 and 7 bf16 in
+           phase 2; 1 and 8 in the evals), none of the f32 training
+           kernels; and ``eval-ours`` + ``diff`` on ``ref_model.pth``,
+           which must PASS against ``.parity_p2/ref_eval.json``. The
+           output goes to build/chip_smoke/real_parity_*.txt.
+14. kernels one line listing every kernel of the port with its launches
            on its path's phase, error and times (rows 1, 2, 3, 6, 7 and 8
            also at 512).
 
@@ -3875,6 +3892,195 @@ def phase_dp(seed: int, out_dir: str) -> dict:
     return res
 
 
+REAL_PARITY_DIR = os.path.join("build", "chip_smoke", "real_parity")
+REAL_PARITY_P2_DIR = os.path.join("build", "chip_smoke", "real_parity_p2")
+REAL_PARITY_FIXTURE = (1800, 128)    # build3's: COCO images, test images
+REAL_PARITY_ITERS = (30, 20)         # phase 1, phase 2 (a smoke)
+REAL_PARITY_INIT_ITER, REAL_PARITY_NO_MIXUP = 5, 5
+TRACKED_VOC = os.path.join(".parity_p2", "voc", "VOCdevkit")
+TRANSFER_RECORD = os.path.join(".parity_tr", "ours_eval")
+TRANSFER_EVAL_TOL = 1e-12
+# a JPEG that another libjpeg encodes differently: decoded, one pixel may
+# move by a few levels of 255 (none did on the machines tried)
+JPEG_LEVELS = 8
+
+
+def fixture_against_tracked(devkit: str) -> dict:
+    """The VOC half of build3's tree against ``.parity_p2/voc`` (built at
+    500 test images, this one at 128): every XML and list byte for byte,
+    ``test.txt`` its first 128 lines; the JPEGs byte for byte, or else
+    decoded within ``JPEG_LEVELS``."""
+    import filecmp
+
+    import numpy as np
+
+    from ct_tpu_torch.data.voc import read_image
+
+    res = {"files": 0, "jpeg_bytes_differ": 0, "jpeg_max_level_delta": 0}
+    for year in ("2007", "2012"):
+        ours_root = os.path.join(devkit, "VOC" + year)
+        ref_root = os.path.join(TRACKED_VOC, "VOC" + year)
+        for d, _, files in os.walk(ref_root):
+            for name in files:
+                ref = os.path.join(d, name)
+                ours = os.path.join(ours_root, os.path.relpath(ref,
+                                                               ref_root))
+                res["files"] += 1
+                if name == "test.txt":
+                    with open(ref) as f:
+                        want = "".join(f.readlines()[:REAL_PARITY_FIXTURE[1]])
+                    with open(ours) as f:
+                        if f.read() != want:
+                            raise AssertionError(f"{ours} is not the first "
+                                                 f"lines of {ref}")
+                elif not filecmp.cmp(ours, ref, shallow=False):
+                    if not name.endswith(".jpg"):
+                        raise AssertionError(f"{ours} differs from {ref}")
+                    res["jpeg_bytes_differ"] += 1
+                    delta = int(np.abs(read_image(ours).astype(np.int16)
+                                       - read_image(ref)).max())
+                    res["jpeg_max_level_delta"] = max(
+                        res["jpeg_max_level_delta"], delta)
+        if len(os.listdir(os.path.join(ours_root, "JPEGImages"))) != len(
+                os.listdir(os.path.join(ref_root, "JPEGImages"))):
+            raise AssertionError(f"{ours_root}: another image count")
+    res["jpeg_band_levels"] = JPEG_LEVELS
+    if res["jpeg_max_level_delta"] > JPEG_LEVELS:
+        raise AssertionError(f"the fixture's JPEGs decode apart from the "
+                             f"tracked ones: {res}")
+    return res
+
+
+def real_parity_step(args, counts: dict, log_name: str, out_dir: str):
+    """One sub-command of ``scripts/real_parity.py`` with ``counts``' kernels
+    counted from 0 (the CLIs' output to ``log_name``): (its result, its
+    seconds, the launches)."""
+    from ct_tpu_torch.scripts import real_parity
+
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with Captured(os.path.join(out_dir, log_name)):
+        out = real_parity.main(args)
+    return (out, time.perf_counter() - t0,
+            {n: fn.launches for n, fn in counts.items()})
+
+
+def phase_real_parity(out_dir: str) -> dict:
+    """The transfer chain of ``scripts/real_parity.py`` on the card:
+    build3's trees at full size, the VOC half against the tracked fixture,
+    the evaluator against JAX's transfer record, phase 1 (COCO-60) and
+    phase 2 (transfer, 5-shot) at full width in bf16 for a few iterations
+    with their kernels' launches, both evals, and ``eval-ours`` + ``diff``
+    on ``ref_model.pth`` against the reference stack's record."""
+    import json
+    import pickle
+    import shutil
+
+    from ct_tpu_torch.data.voc import VOCTestSet
+    from ct_tpu_torch.ops.ct_attention import ct_attention_cm
+    from ct_tpu_torch.ops.nms import nms_mask
+
+    for d in (REAL_PARITY_DIR, REAL_PARITY_P2_DIR):
+        if os.path.exists(d):
+            shutil.rmtree(d)
+    out = REAL_PARITY_DIR
+    images, test_images = REAL_PARITY_FIXTURE
+    counts = training_counts()
+    eval_counts = {"ct_attention_cm": ct_attention_cm, "nms_mask": nms_mask}
+    res = {}
+    _, res["build3_s"], _ = real_parity_step(
+        ["build3", "--out", out, "--images", str(images), "--test-images",
+         str(test_images)], {}, "real_parity_build3.txt", out_dir)
+    devkit = os.path.join(out, "voc", "VOCdevkit")
+    res["fixture"] = fixture_against_tracked(devkit)
+
+    with open(os.path.join(TRANSFER_RECORD, "inference", "detections.pkl"),
+              "rb") as f:
+        all_boxes = pickle.load(f)
+    with open(TRANSFER_RECORD + ".json") as f:
+        record = json.load(f)
+    scored = VOCTestSet(devkit, "2007", "test", phase=2, setting="transfer",
+                        split=1).evaluate_detections(
+        all_boxes, os.path.join(out_dir, "transfer_record"))
+    deltas = [abs(scored["mAP"] - record["mAP"])] + [
+        abs(scored["APs"][c] - ap) for c, ap in record["APs"].items()]
+    res["evaluator"] = {"mAP": scored["mAP"], "max_abs_delta": max(deltas)}
+    if max(deltas) > TRANSFER_EVAL_TOL:
+        raise AssertionError(f"the VOC evaluator misses JAX's transfer "
+                             f"record: {res['evaluator']}")
+
+    it1, it2 = REAL_PARITY_ITERS
+    run = ["--batch", str(TRAIN_BATCH), "--out", out]
+    steps = (
+        ("train", ["train", "--dataset", "COCO", "--iters", str(it1),
+                   "--export-name", "phase1.pth"] + run, counts, it1,
+         ("pool2x2_relu_fwd_bf16", "pool2x2_relu_bwd_bf16")),
+        ("eval_coco", ["eval-ours", "--dataset", "COCO", "--phase", "1",
+                       "--setting", "transfer", "--load-name",
+                       "phase1.pth", "--out", out], eval_counts, 1,
+         ("nms_mask",)),
+        ("train2", ["train2", "--setting", "transfer", "--shot", "5",
+                    "--iters", str(it2), "--init-iter",
+                    str(REAL_PARITY_INIT_ITER), "--no-mixup-iter",
+                    str(REAL_PARITY_NO_MIXUP)] + run, counts, it2,
+         ("ct_attention_cm_stats_bf16", "ct_attention_cm_bwd_flash_bf16",
+          "pool2x2_relu_fwd_bf16", "pool2x2_relu_bwd_bf16")),
+        ("eval", ["eval-ours", "--phase", "2", "--setting", "transfer",
+                  "--out", out], eval_counts, 1,
+         ("ct_attention_cm", "nms_mask")))
+    for name, args, kernels, n, used in steps:
+        result, seconds, launches = real_parity_step(
+            args, kernels, f"real_parity_{name}.txt", out_dir)
+        res[name] = {"seconds": seconds, "launches": launches,
+                     "per_step": {k: launches[k] / n for k in used}}
+        if name.startswith("train"):
+            res[name].update(images_per_s=result["images_per_s"],
+                             dtype=result["dtype"], last=result["last"])
+            fine = all(math.isfinite(v) for v in result["last"].values())
+        else:
+            res[name].update({k: result[k] for k in ("mAP", "AP", "AP50")
+                              if k in result})
+            fine = all(0 <= result.get(k, 0) <= 1 or result[k] == -1
+                       for k in ("mAP", "AP50"))
+        # the chain runs the card's kernels: every one of its step's, at
+        # least once a step, and nothing of the f32 training kernels
+        unused_f32 = [k for k in launches if k.startswith(
+            ("ct_attention_cm_stats", "ct_attention_cm_bwd",
+             "pool2x2_relu")) and not k.endswith("_bf16")]
+        if not (fine and all(launches[k] >= n for k in used)
+                and not any(launches[k] for k in unused_f32
+                            if name.startswith("train"))):
+            raise AssertionError(f"real_parity {name} is wrong: "
+                                 f"{res[name]}")
+
+    # ref_model.pth through eval-ours and diff: the reference stack's
+    # record (.parity_p2/ref_eval.json) and detections, in a folder of
+    # their own
+    p2 = REAL_PARITY_P2_DIR
+    os.makedirs(p2)
+    os.symlink(os.path.abspath(os.path.join(".parity_p2", "voc")),
+               os.path.join(p2, "voc"))
+    for name in ("ref_eval.json", "detections_ref.pkl"):
+        shutil.copy(os.path.join(".parity_p2", name), os.path.join(p2, name))
+    scores, seconds, launches = real_parity_step(
+        ["eval-ours", "--out", p2, "--phase", "2", "--load-name",
+         os.path.abspath(REF_MODEL)], eval_counts,
+        "real_parity_ref_eval.txt", out_dir)
+    verdict, _, _ = real_parity_step(["diff", "--out", p2, "--phase", "2"],
+                                     {}, "real_parity_diff.txt", out_dir)
+    res["ref_model"] = {"seconds": seconds, "launches": launches,
+                        "mAP": scores["mAP"],
+                        "novel_mAP": scores["novel_mAP"],
+                        "diff": {k: verdict[k] for k in
+                                 ("ref_mAP", "delta", "novel_mAP", "ok")},
+                        "detections": verdict.get("detections")}
+    if not (verdict["ok"] and all(launches.values())):
+        raise AssertionError(f"eval-ours + diff on ref_model.pth fail: "
+                             f"{res['ref_model']}")
+    return res
+
+
 def dp_ranks(seed: int) -> dict:
     """(a) and (b) of the dp phase: one launch of two ranks."""
     import numpy as np
@@ -4325,7 +4531,9 @@ def main(argv=None) -> int:
                      ("bench", lambda: phase_bench(PROFILE_DIR)),
                      ("size512", lambda: phase_size512(args.seed,
                                                        PROFILE_DIR)),
-                     ("dp", lambda: phase_dp(args.seed, PROFILE_DIR))):
+                     ("dp", lambda: phase_dp(args.seed, PROFILE_DIR)),
+                     ("real_parity", lambda: phase_real_parity(
+                         PROFILE_DIR))):
         t0 = time.perf_counter()
         results[name] = fn()
         emit({"phase": name, "seconds": time.perf_counter() - t0,

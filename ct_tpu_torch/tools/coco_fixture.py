@@ -26,6 +26,7 @@ from typing import Tuple
 import numpy as np
 
 from ct_tpu_torch.data.coco import COCO_80_CATEGORIES, NONVOC_CAT_INDICES
+from ct_tpu_torch.tools.voc_fixture import class_color
 
 NONVOC_60 = [COCO_80_CATEGORIES[i] for i in NONVOC_CAT_INDICES]
 
@@ -41,12 +42,6 @@ MINI_COCO_CATS = [
 SPLIT_FILES = ("split_nonvoc_instances_train2014.json",
                "split_nonvoc_instances_valminusminival2014.json",
                "split_nonvoc_instances_minival2014.json")
-
-
-def class_color(idx: int) -> Tuple[int, int, int]:
-    """Deterministic BGR colour for class ``idx`` (the mini tree's)."""
-    rng = np.random.RandomState(977 + idx)
-    return tuple(int(c) for c in rng.randint(30, 226, 3))
 
 
 def sep_color(idx: int) -> Tuple[int, int, int]:

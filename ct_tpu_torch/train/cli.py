@@ -84,8 +84,12 @@ COCO-60 source pretraining) reads ``split_nonvoc_train2014`` and
 spawned processes, for the host augmentation. As in
 the reference, ``CT_ATTENTION_FLASH=0`` trains the CT attention with its
 blockwise backward instead of the flash one; it is read on every call of
-``main``. Flags of what the port does not run yet raise and name the
-ROADMAP item that will port it.
+``main``. ``--pallas-ct`` raises: the port always runs its own CT kernels.
+
+Fresh weights (all of them in phase 1 without a basenet; the CT head's
+θ/φ/g and ``fc_base`` in phase 2) get the JAX package's initialisers
+(``models/init.py``, seed 0), as ``train.py`` starts from
+``init_train_state`` before it loads a checkpoint.
 """
 
 from __future__ import annotations
@@ -347,6 +351,7 @@ def train(args) -> dict:
     from ct_tpu_torch.data.augment import RawCanvasTransform, TrainAugment
     from ct_tpu_torch.data.augment_device import mixup_batch
     from ct_tpu_torch.data.loader import Loader
+    from ct_tpu_torch.models.init import init_like_jax
     from ct_tpu_torch.models.rfbnet import build_net
     from ct_tpu_torch.ops.priors import prior_boxes
     from ct_tpu_torch.parallel.distributed import rank_device
@@ -403,9 +408,11 @@ def train(args) -> dict:
     ct_flash = os.environ.get("CT_ATTENTION_FLASH", "1") != "0"
     logger.info("CT attention backward: %s",
                 "flash" if ct_flash else "blockwise (CT_ATTENTION_FLASH=0)")
-    torch.manual_seed(0)
-    model = build_net(task, img_dim, device=device, ct_flash=ct_flash,
-                      dtype=dtype).train()
+    # the JAX package's initialisers (train.py's init_train_state) for
+    # whatever the basenet or --load-file does not overwrite
+    model = init_like_jax(
+        build_net(task, img_dim, device=device, ct_flash=ct_flash,
+                  dtype=dtype), torch.Generator().manual_seed(0)).train()
     optimizer, scheduler = build_optimizer(model, task, solver_cfg,
                                            fused=args.fused_opt == "on")
     ck = Checkpointer(args.save_folder)

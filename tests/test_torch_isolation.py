@@ -56,7 +56,9 @@ def test_the_checks_cover_every_module_of_the_port():
             "ct_tpu_torch.data.coco", "ct_tpu_torch.data.cocoeval",
             "ct_tpu_torch.data.split_coco", "ct_tpu_torch.data.split_voc",
             "ct_tpu_torch.data.make_shots",
-            "ct_tpu_torch.tools.coco_fixture"} <= mods
+            "ct_tpu_torch.tools.coco_fixture",
+            "ct_tpu_torch.tools.voc_fixture", "ct_tpu_torch.models.init",
+            "ct_tpu_torch.scripts.real_parity"} <= mods
     n_files = sum(len([f for f in files if f.endswith(".py")])
                   for root, _, files in os.walk(PACKAGE)
                   if "__pycache__" not in root)
