@@ -1021,6 +1021,7 @@ def profiled_events(fn, iters: int = 1) -> list:
         torch.cuda.synchronize()
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and "spin_kernel" not in e.key]
 
 
@@ -4217,9 +4218,12 @@ def profile_step(fn, out_dir: str, table: str, names=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # a labelled span (``record_function``) also shows as a CUDA row over
+    # its kernels: kernels alone are counted
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+              and e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     events.sort(key=lambda e: -e.device_time_total)
     busy_ms = sum(e.device_time_total for e in events) / 1e3
     os.makedirs(out_dir, exist_ok=True)

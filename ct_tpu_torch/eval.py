@@ -24,6 +24,7 @@ from ct_tpu_torch.models.rfbnet import RFBNet, eval_scores
 from ct_tpu_torch.ops.detection import decode_and_fuse, postprocess
 from ct_tpu_torch.ops.nms import Detections
 from ct_tpu_torch.parallel.mesh import Mesh, gather_blocks
+from ct_tpu_torch.utils.profiler import annotate
 from ct_tpu_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
@@ -42,16 +43,22 @@ def make_eval_step(
     ``dtype``) its compute type: the images go in float32, as the JAX
     package feeds them, its first conv casts them, and the scores reach
     NMS in the type the model emits them (bf16 on the serving path); the
-    detections come out float32 either way."""
+    detections come out float32 either way. Its spans (``utils/profiler``):
+    ``eval.step`` on the host, ``eval.forward`` and ``eval.postprocess``
+    (scores, decode, NMS, the cap) on the device."""
 
     @torch.inference_mode()
     def step(images: torch.Tensor,
              image_sizes: Optional[torch.Tensor] = None) -> Detections:
-        preds = net(images)
-        conf, obj = eval_scores(preds)
-        return postprocess(preds.loc, conf, obj, priors_cs,
-                           image_sizes=image_sizes, top_k=top_k,
-                           approx_top_k=approx_top_k, pool_size=pool_size)
+        with annotate("eval.step"):
+            with annotate("eval.forward", device=True):
+                preds = net(images)
+            with annotate("eval.postprocess", device=True):
+                conf, obj = eval_scores(preds)
+                return postprocess(preds.loc, conf, obj, priors_cs,
+                                   image_sizes=image_sizes, top_k=top_k,
+                                   approx_top_k=approx_top_k,
+                                   pool_size=pool_size)
 
     return step
 

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ct_tpu_torch.utils.profiler import annotate
+
 Ints = Union[int, Tuple[int, int]]
 
 # torch._int_mm on the card takes M > 16 rows and K, N multiples of 8
@@ -140,16 +142,19 @@ class Conv2d(nn.Conv2d):
             if self.bias is not None:
                 y = y + self.bias.to(dt)[None, :, None, None]
             return y
-        x8 = x if x.dtype == torch.int8 else quantize_act(x, self.act_scale)
-        acc = conv2d_int8(x8, self.kernel_int8, self.stride, self.padding,
-                          self.dilation)
-        y = acc.float() * (self.act_scale * self.kernel_scale)[
-            None, :, None, None]
-        if self.bias is not None:
-            y = y + self.bias[None, :, None, None]
-        if self.out_scale is not None:
-            return quantize_act(y, self.out_scale)
-        return y if self.compute_dtype is None else y.to(self.compute_dtype)
+        with annotate("model.int8_conv", device=True):
+            x8 = (x if x.dtype == torch.int8
+                  else quantize_act(x, self.act_scale))
+            acc = conv2d_int8(x8, self.kernel_int8, self.stride,
+                              self.padding, self.dilation)
+            y = acc.float() * (self.act_scale * self.kernel_scale)[
+                None, :, None, None]
+            if self.bias is not None:
+                y = y + self.bias[None, :, None, None]
+            if self.out_scale is not None:
+                return quantize_act(y, self.out_scale)
+            return (y if self.compute_dtype is None
+                    else y.to(self.compute_dtype))
 
 
 class MaxPool2d(nn.MaxPool2d):

@@ -54,6 +54,7 @@ from ct_tpu_torch.ops.ct_attention import (
     ct_attention_cm, ct_attention_serving,
 )
 from ct_tpu_torch.ops.pool_relu import pool2x2_relu
+from ct_tpu_torch.utils.profiler import annotate
 
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "C",
            512, 512, 512, "M", 512, 512, 512)
@@ -345,7 +346,9 @@ class RFBNet(nn.Module):
             conf_feat = conf_cm.transpose(1, 2)
             ct_head = (self._context_transformer_serving if self.fold_bn
                        else self._context_transformer)
-            conf_out = ct_head(conf_cm, torch.cat(keys, dim=1))
+            # device time where it is read: the serving forward
+            with annotate("model.ct_head", device=not self.training):
+                conf_out = ct_head(conf_cm, torch.cat(keys, dim=1))
         else:
             conf_feat = torch.cat(conf, dim=1)
             conf_out = conf_feat

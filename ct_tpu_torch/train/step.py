@@ -36,6 +36,12 @@ unreduced. The model is not wrapped in ``DistributedDataParallel``, which
 divides the gradients by the number of ranks instead of by N and
 broadcasts rank 0's BatchNorm buffers instead of averaging them.
 
+Its spans (``utils/profiler``), on the host: ``train.step``; inside it
+``train.forward`` (step 1), ``train.loss`` (2, 3) and ``train.backward``
+(4's backward) a micro-batch, and ``train.update`` twice: 4's division by
+N, then 5 and 6. The step is host-paced, so they time where its wall
+time goes.
+
 ``loss_and_grads`` is steps 1–4 alone: it leaves the gradients on the
 parameters and returns the N-normalised losses. It can be handed the
 anchors to count instead of mining them, so that two devices can be held
@@ -56,6 +62,7 @@ from ct_tpu_torch.ops.matching import match_batch
 from ct_tpu_torch.parallel.mesh import (
     Mesh, all_reduce_flat, bn_running_stats,
 )
+from ct_tpu_torch.utils.profiler import annotate
 
 LOSS_KEYS = ("loss_box_reg", "loss_cls", "loss_obj")
 
@@ -110,23 +117,28 @@ def loss_and_grads(model: RFBNet, batch: Mapping[str, torch.Tensor],
     for i in range(accum_steps):
         part = slice(i * micro, (i + 1) * micro)
         mb = {k: v[part] for k, v in batch.items()}
-        preds = model(mb["image"])
-        matched = match_batch(mb["boxes"], mb["labels"], mb["weights"],
-                              mb["valid"], priors_cs, match_threshold)
-        mined, num_pos = loss_mask(preds.obj, matched)
-        counted = mined if mask is None else mask[part]
-        sums = masked_loss_sums(preds.loc, preds.conf, preds.obj, matched,
-                                counted)
-        sum(sums[k] for k in LOSS_KEYS).backward()
+        with annotate("train.forward"):
+            preds = model(mb["image"])
+        with annotate("train.loss"):
+            matched = match_batch(mb["boxes"], mb["labels"], mb["weights"],
+                                  mb["valid"], priors_cs, match_threshold)
+            mined, num_pos = loss_mask(preds.obj, matched)
+            counted = mined if mask is None else mask[part]
+            sums = masked_loss_sums(preds.loc, preds.conf, preds.obj,
+                                    matched, counted)
+            total = sum(sums[k] for k in LOSS_KEYS)
+        with annotate("train.backward"):
+            total.backward()
         totals = {k: totals[k] + sums[k].detach() for k in LOSS_KEYS}
         n = n + num_pos.sum().detach()
         masks.append(counted)
     if mesh is not None and mesh.distributed:
         totals, n = reduce_over_ranks(model, totals, n, mesh)
     n = torch.clamp(n, min=1.0)
-    for p in model.parameters():
-        if p.grad is not None:
-            p.grad.div_(n)
+    with annotate("train.update"):
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(n)
     losses = {k: totals[k] / n for k in LOSS_KEYS}
     losses["total_loss"] = sum(losses[k] for k in LOSS_KEYS)
     losses["num_pos"] = n
@@ -159,14 +171,16 @@ def make_train_step(priors_cs: torch.Tensor, match_threshold: float = 0.5,
     rank's block under ``mesh``) taken in ``accum_steps`` micro-batches."""
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
-        losses, _ = loss_and_grads(state.model, batch, priors_cs,
-                                   match_threshold, accum_steps=accum_steps,
-                                   mesh=mesh)
-        state.optimizer.step()
-        state.scheduler.step()
-        if state.model.task.has_ct_head:
-            normalize_obj_target(state.model)
-        state.step += 1
+        with annotate("train.step"):
+            losses, _ = loss_and_grads(state.model, batch, priors_cs,
+                                       match_threshold,
+                                       accum_steps=accum_steps, mesh=mesh)
+            with annotate("train.update"):
+                state.optimizer.step()
+                state.scheduler.step()
+                if state.model.task.has_ct_head:
+                    normalize_obj_target(state.model)
+            state.step += 1
         return losses
 
     return step
